@@ -1,0 +1,523 @@
+"""Launch wrappers of the enumeration kernel and their plain versions.
+
+The counterpart of the JAX package's enum/pallas_kernel.py. Its four
+pallas_call sites share one kernel body (`_make_chunk_kernel`); here
+that body is one hand-written CUDA kernel, ``csrc/enum_chunk.cu``, built
+with nvcc at first use into ``build/torch_kernels/`` and loaded with
+ctypes. Two wrappers launch it:
+
+- :func:`enum_run` — one problem, the contract of `_enum_run_pallas`
+  (itself a drop-in for `tpu._enum_run`): device-level tree of height m
+  over a sorted root queue, returning per-level node counts, the K best
+  lanes and the solution count;
+- :func:`enum_run_grouped` — G problems (rerandomized bases of one
+  window) in one launch with one shared shrinking bound, the contract of
+  `_enum_run_pallas_grouped`.
+
+A wrapper given CUDA tensors launches the kernel or raises; given CPU
+tensors it runs the plain PyTorch version, a vectorized port of the
+lockstep step of `tpu._make_step`/`_enum_run` (f32 primal SVP/CVP, count
+and search mode). Nothing on the card's path calls the plain version.
+
+Counts: ``LAUNCHES`` counts kernel launches per wrapper and nothing
+else, ``PLAIN_RUNS`` the wrappers' runs of the plain version; node
+counters are int64 (uint64 in the kernel), never f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+from typing import Dict, Optional
+
+from ..torchsetup import torch
+
+__all__ = ["enum_run", "enum_run_grouped", "enum_run_plain",
+           "enum_run_grouped_plain", "build_kernel", "LAUNCHES", "PLAIN_RUNS",
+           "reset_launch_counts", "MAX_LEVELS"]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+KERNEL_SOURCE = os.path.join(_PKG, "csrc", "enum_chunk.cu")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
+MAX_LEVELS = 128          # ENUM_MAXM of the CUDA source
+_K_TOP = 128              # lanes kept by the finalize (tpu._enum_run)
+_THREADS = 64             # CUDA threads (lanes) per block
+
+LAUNCHES: Dict[str, int] = {"single": 0, "grouped": 0}
+# runs of the plain version through the wrappers (CPU tensors)
+PLAIN_RUNS: Dict[str, int] = {"single": 0, "grouped": 0}
+
+
+def reset_launch_counts() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+        PLAIN_RUNS[key] = 0
+
+
+# ---------------------------------------------------------------------------
+# CUDA build and binding (plain C interface, ctypes)
+# ---------------------------------------------------------------------------
+class _EnumParams(ctypes.Structure):
+    """Mirror of EnumParams in csrc/enum_chunk.cu (order and types)."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x", "roots_pd",
+        "A0", "m_real", "cursor", "bound", "bdist", "bdev", "bri", "nodes",
+        "sols", "steps", "aborted")] + [("max_steps", ctypes.c_longlong)] + \
+        [(name, ctypes.c_int) for name in (
+            "G", "G_real", "m", "nfixp", "R", "B", "is_svp", "count_mode")]
+
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG = ""
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the enumeration kernel is built "
+                           "from csrc/enum_chunk.cu with the CUDA toolkit")
+    return path
+
+
+def build_kernel() -> ctypes.CDLL:
+    """Compile csrc/enum_chunk.cu for sm_90a (once per source change) and
+    load it. Raises on a missing toolkit or a failed build."""
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    so = os.path.join(BUILD_DIR, "libenum_chunk.so")
+    if not (os.path.exists(so) and
+            os.path.getmtime(so) >= os.path.getmtime(KERNEL_SOURCE)):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+               "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
+               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, KERNEL_SOURCE]
+        res = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=600)
+        BUILD_LOG = res.stdout + res.stderr
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n"
+                               f"{BUILD_LOG[-4000:]}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    lib.enum_chunk_launch.restype = ctypes.c_int
+    lib.enum_chunk_launch.argtypes = [ctypes.POINTER(_EnumParams),
+                                      ctypes.c_int, ctypes.c_void_p]
+    lib.enum_chunk_error_string.restype = ctypes.c_char_p
+    lib.enum_chunk_error_string.argtypes = [ctypes.c_int]
+    _LIB = lib
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape) or \
+            t.device != device or not t.is_contiguous():
+        raise ValueError(f"{name}: expected contiguous {dtype} {tuple(shape)} "
+                         f"on {device}, got {t.dtype} {tuple(t.shape)} on "
+                         f"{t.device}")
+
+
+def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
+             *, G_real: int, batch: int, is_svp: bool, count_mode: bool,
+             max_steps: int):
+    """Check the stacked inputs of G problems, allocate the outputs on
+    their device and fill the kernel's parameter struct."""
+    G, m, _ = mut.shape
+    R, nfixp = roots_x.shape[1], roots_x.shape[2]
+    dev = mut.device
+    f32, i32 = torch.float32, torch.int32
+    for t, name, shape in ((mut, "mut", (G, m, m)), (rdiag, "rdiag", (G, m)),
+                           (prune, "prune", (G, m)),
+                           (mut_fix, "mut_fix", (G, m, nfixp)),
+                           (cp0, "cp0", (G, m)),
+                           (roots_x, "roots_x", (G, R, nfixp)),
+                           (roots_pd, "roots_pd", (G, R)), (A0, "A0", (G,))):
+        _check(t, name, f32, shape, dev)
+    _check(m_real, "m_real", i32, (G,), dev)
+    if not 2 <= m <= MAX_LEVELS:
+        raise ValueError(f"tree height {m} outside [2, {MAX_LEVELS}]")
+    mr = m_real.cpu()
+    if int(mr.min()) < 2 or int(mr.max()) > m:
+        raise ValueError("m_real must lie in [2, m]")
+    GB = G * batch
+    out = {
+        "cursor": torch.zeros(G, dtype=i32, device=dev),
+        "bound": torch.full((1,), float("inf"), dtype=f32, device=dev),
+        "bdist": torch.empty(GB, dtype=f32, device=dev),
+        "bdev": torch.zeros((GB, m), dtype=f32, device=dev),
+        "bri": torch.empty(GB, dtype=i32, device=dev),
+        "nodes": torch.zeros((G, m), dtype=torch.int64, device=dev),
+        "sols": torch.zeros(G, dtype=torch.int64, device=dev),
+        "steps": torch.zeros(1, dtype=torch.int64, device=dev),
+        "aborted": torch.zeros(1, dtype=i32, device=dev),
+    }
+    p = _EnumParams()
+    for name, t in (("mut", mut), ("rdiag", rdiag), ("prune", prune),
+                    ("mut_fix", mut_fix), ("cp0", cp0),
+                    ("roots_x", roots_x), ("roots_pd", roots_pd),
+                    ("A0", A0), ("m_real", m_real)):
+        setattr(p, name, t.data_ptr())
+    for name in ("cursor", "bound", "bdist", "bdev", "bri", "nodes", "sols",
+                 "steps", "aborted"):
+        setattr(p, name, out[name].data_ptr())
+    p.max_steps = int(max_steps)
+    p.G, p.G_real, p.m, p.nfixp, p.R, p.B = G, G_real, m, nfixp, R, batch
+    p.is_svp, p.count_mode = int(is_svp), int(count_mode)
+    return p, out
+
+
+def _kernel_run(*args, **kw) -> dict:
+    """One launch over G stacked problems on the current CUDA stream;
+    returns the raw per-lane and per-problem outputs (on the card)."""
+    p, out = _prepare(*args, **kw)
+    lib = build_kernel()
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    rc = lib.enum_chunk_launch(ctypes.byref(p), _THREADS, stream)
+    if rc != 0:
+        raise RuntimeError("enum_chunk launch failed: " +
+                           lib.enum_chunk_error_string(rc).decode())
+    return out
+
+
+def _lanes(batch: int) -> int:
+    """Lanes of a launch: the batch rounded up to whole blocks."""
+    return -(-int(batch) // _THREADS) * _THREADS
+
+
+def _raise_if_aborted(out: dict, max_steps: int) -> None:
+    if int(out["aborted"].item()):
+        raise RuntimeError(f"enum_chunk: a lane walked more than {max_steps} "
+                           "nodes; raise max_steps")
+
+
+def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
+                     batch: int, max_steps: int) -> dict:
+    """The K best lanes and the problem's totals (the top-K finalize the
+    JAX package ran as XLA after its Pallas call)."""
+    _raise_if_aborted(out, max_steps)
+    R, nfix = roots_x.shape
+    K = min(batch, _K_TOP)
+    negd, idx = torch.topk(-out["bdist"], K)
+    bound = torch.clamp(out["bound"][0], max=float(A0))
+    return {
+        "nodes": out["nodes"][0],
+        "best_dist": -negd,
+        "best_dev": out["bdev"][idx],
+        "best_root": roots_x[out["bri"][idx].long()],
+        "sol_count": out["sols"][0],
+        "A": float(A0) if count_mode else bound,
+        "cursor": torch.clamp(out["cursor"][0], max=R),
+        "steps": out["steps"][0],
+    }
+
+
+def _finalize_grouped(out: dict, roots_x, A0, *, batch: int,
+                      max_steps: int) -> dict:
+    """Each problem's best lane, unpacked with its root."""
+    _raise_if_aborted(out, max_steps)
+    G = roots_x.shape[0]
+    ar = torch.arange(G, device=roots_x.device)
+    bd = out["bdist"].view(G, batch)
+    lane = torch.argmin(bd, dim=1)
+    cols = ar * batch + lane
+    return {
+        "dist": bd[ar, lane],
+        "dev": out["bdev"][cols],
+        "root": roots_x[ar, out["bri"][cols].long()],
+        "nodes": out["nodes"].sum(dim=0),
+        "A": torch.clamp(A0, max=out["bound"][0]),
+        "bound": out["bound"][0],
+        "steps": out["steps"][0],
+    }
+
+
+# ---------------------------------------------------------------------------
+# public wrappers
+# ---------------------------------------------------------------------------
+def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
+             *, m: int, is_svp: bool, count_mode: bool,
+             max_steps: int = 1 << 30, batch: int = 1024,
+             m_real: Optional[int] = None) -> dict:
+    """Enumerate one problem (the `_enum_run_pallas` contract, f32).
+
+    mut (m, m) is the transposed mu (mut = mu^T); rdiag/prune/cp0
+    are (m,); mut_fix (m, nfix) couples device levels to the nfix fixed
+    levels; roots_x (R, nfix) and roots_pd (R,) are the subtree roots,
+    sorted by pd, padded with inf or 1e30. Levels m_real..m-1 are bucket
+    padding (rdiag 1e30). All tensors float32 on one device: CUDA
+    launches the kernel, CPU runs the plain version. Returns nodes (m,)
+    int64, best_dist (K,), best_dev (K, m), best_root (K, nfix),
+    sol_count, A, cursor and steps (the lockstep steps of the plain
+    version; the longest lane walk of the kernel)."""
+    dev = mut.device
+    if dev.type == "cpu":
+        PLAIN_RUNS["single"] += 1
+        return enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
+                               roots_pd, A0, m=m, is_svp=is_svp,
+                               count_mode=count_mode, max_steps=max_steps,
+                               batch=batch)
+    if dev.type != "cuda":
+        raise ValueError(f"enum_run: unsupported device {dev}")
+    batch = _lanes(batch)
+    mr = m if m_real is None else int(m_real)
+    out = _kernel_run(
+        mut[None], rdiag[None], prune[None], mut_fix[None], cp0[None],
+        roots_x[None], roots_pd[None],
+        torch.full((1,), float(A0), dtype=torch.float32, device=dev),
+        torch.full((1,), mr, dtype=torch.int32, device=dev),
+        G_real=1, batch=batch, is_svp=is_svp, count_mode=count_mode,
+        max_steps=max_steps)
+    LAUNCHES["single"] += 1
+    return _finalize_single(out, roots_x, A0, count_mode=count_mode,
+                            batch=batch, max_steps=max_steps)
+
+
+def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
+                     m_real, *, G_real: int, batch: int = 1024,
+                     is_svp: bool = True, max_steps: int = 1 << 30) -> dict:
+    """Enumerate G problems in one launch with one shared shrinking bound
+    (the `_enum_run_pallas_grouped` contract, search mode).
+
+    The G problems must be rerandomized bases of the same lattice block:
+    a solution any of the first G_real problems finds bounds all of them.
+    Problems G_real..G-1 are padding (A0 = 0) and never write the bound.
+    Inputs are the per-problem arrays of :func:`enum_run` stacked on a
+    leading G axis, with m_real (G,) int32. Returns dist (G,), dev (G, m),
+    root (G, nfixp), nodes (m,) int64, A (G,), bound (the shared bound
+    after the launch: the least distance a real problem found, inf if
+    none) and steps. On the CPU the
+    problems run one after another, carrying the shared bound the way the
+    TPU grid carried it across cells."""
+    dev = mut.device
+    if dev.type == "cpu":
+        PLAIN_RUNS["grouped"] += 1
+        return enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0,
+                                       roots_x, roots_pd, A0, G_real=G_real,
+                                       batch=batch, is_svp=is_svp,
+                                       max_steps=max_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"enum_run_grouped: unsupported device {dev}")
+    batch = _lanes(batch)
+    out = _kernel_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
+                      A0, m_real, G_real=G_real, batch=batch, is_svp=is_svp,
+                      count_mode=False, max_steps=max_steps)
+    LAUNCHES["grouped"] += 1
+    return _finalize_grouped(out, roots_x, A0, batch=batch,
+                             max_steps=max_steps)
+
+
+# ---------------------------------------------------------------------------
+# plain PyTorch versions (CPU tensors)
+# ---------------------------------------------------------------------------
+def _cround(x: torch.Tensor) -> torch.Tensor:
+    """C round(): halves away from zero (the JAX package's _cround)."""
+    half = torch.where(x >= 0, torch.tensor(0.5, dtype=x.dtype),
+                       torch.tensor(-0.5, dtype=x.dtype))
+    return torch.trunc(x + half)
+
+
+def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
+                    *, m: int, is_svp: bool, count_mode: bool,
+                    max_steps: int, batch: int) -> dict:
+    """Lockstep DFS over B lanes with a root work queue: the port of
+    `tpu._make_step`/`_enum_run` restricted to f32 primal trees.
+    Per step every active lane does one bound test; passing lanes
+    descend (subtracting x*mu from the center partial sums of the levels
+    below), failing lanes ascend (restoring them) and step to the next
+    zig-zag sibling. Finished lanes pop the next roots in order."""
+    dev, f32 = mut.device, torch.float32
+    B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
+    if R == 0:
+        raise ValueError("enum_run: empty root queue")
+    mut_t = mut.t().contiguous()            # mut_t[k, j] = mut[j, k]
+    cols = torch.arange(m, device=dev)
+    pd_cols = torch.arange(m + 1, device=dev)
+    one = torch.tensor(1.0, dtype=f32, device=dev)
+    zero = torch.tensor(0.0, dtype=f32, device=dev)
+    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    top = m - 1
+
+    def make_fresh(ra, rpd):
+        """Lane state from root rows: cs = cp0 - sum_f ra_f * mut_fix_f,
+        summed in f order, as the kernel sums it."""
+        acc = torch.zeros((B, m), dtype=f32, device=dev)
+        for f in range(nfix):
+            acc = acc + ra[:, f:f + 1] * mut_fix[:, f][None, :]
+        cs = cp0[None, :] - acc
+        c0 = cs[:, top]
+        x0 = _cround(c0)
+        if is_svp:
+            x0 = torch.where(rpd == 0, torch.clamp(x0, min=0.0), x0)
+        d0 = torch.where(c0 >= x0, one, -one)
+        x = torch.zeros((B, m), dtype=f32, device=dev)
+        x[:, top] = x0
+        dx = torch.ones((B, m), dtype=f32, device=dev)
+        dx[:, top] = d0
+        ddx = dx.clone()
+        center = torch.zeros((B, m), dtype=f32, device=dev)
+        center[:, top] = c0
+        partdist = torch.zeros((B, m + 1), dtype=f32, device=dev)
+        partdist[:, top] = rpd
+        return x, dx, ddx, center, partdist, cs
+
+    idx0 = torch.arange(B, device=dev)
+    take = torch.clamp(idx0, 0, R - 1)
+    rx0, rpd0 = roots_x[take], roots_pd[take]
+    A = torch.tensor(float(A0), dtype=f32, device=dev)
+    active = (idx0 < R) & torch.isfinite(rpd0) & (rpd0 <= A)
+    x, dx, ddx, center, partdist, cs = make_fresh(
+        rx0, torch.where(active, rpd0, zero))
+    k = torch.full((B,), top, dtype=torch.int64, device=dev)
+    lane_root = rx0.clone()
+    best_dist = torch.full((B,), float("inf"), dtype=f32, device=dev)
+    best_dev = torch.zeros((B, m), dtype=f32, device=dev)
+    best_root = torch.zeros((B, nfix), dtype=f32, device=dev)
+    sol_count = torch.zeros(B, dtype=torch.int64, device=dev)
+    nodes = torch.zeros(m, dtype=torch.int64, device=dev)
+    cursor = torch.tensor(B, dtype=torch.int64, device=dev)
+    cursor_host = B
+    check_every = 1 if dev.type == "cpu" else 32
+    steps = 0
+
+    while steps < max_steps:
+        if steps % check_every == 0:
+            cursor_host = int(cursor)
+            if not (bool(active.any()) or cursor_host < R):
+                break
+        steps += 1
+        # ---- one lockstep step (tpu._make_step, primal) ----------------
+        kc = torch.clamp(k, 0, top)
+        at = kc[:, None]
+        xk = x.gather(1, at)[:, 0]
+        ck = center.gather(1, at)[:, 0]
+        pdk = partdist.gather(1, at)[:, 0]
+        rk, prk = rdiag[kc], prune[kc]
+        alpha = xk - ck
+        newdist = pdk + alpha * alpha * rk
+        ok = active & (newdist <= prk * A)
+        at_bottom = kc == 0
+        nontrivial = newdist > 0 if is_svp else torch.ones_like(ok)
+        sol_found = ok & at_bottom & nontrivial
+        better = sol_found & (newdist < best_dist)
+        best_dist = torch.where(better, newdist, best_dist)
+        best_dev = torch.where(better[:, None], x, best_dev)
+        best_root = torch.where(better[:, None], lane_root, best_root)
+        sol_count = sol_count + sol_found.long()
+        if not count_mode:
+            A = torch.minimum(A, torch.where(sol_found, newdist, inf).min())
+        nodes.index_add_(0, kc, ok.long())
+
+        descend = ok & ~at_bottom
+        below_k = cols[None, :] < kc[:, None]
+        cs = cs - torch.where(descend[:, None] & below_k,
+                              xk[:, None] * mut_t[kc], zero)
+        k_down = kc - 1
+        c_new = cs.gather(1, torch.clamp(k_down, min=0)[:, None])[:, 0]
+        x_new = _cround(c_new)
+        d_init = torch.where(c_new >= x_new, one, -one)
+        sel_down = descend[:, None] & (cols[None, :] == k_down[:, None])
+        center = torch.where(sel_down, c_new[:, None], center)
+        x = torch.where(sel_down, x_new[:, None], x)
+        dx = torch.where(sel_down, d_init[:, None], dx)
+        ddx = torch.where(sel_down, d_init[:, None], ddx)
+        partdist = torch.where(
+            descend[:, None] & (pd_cols[None, :] == k_down[:, None]),
+            newdist[:, None], partdist)
+
+        fail = active & ~ok
+        sib = (ok & at_bottom) | fail
+        k_sib = torch.where(fail, kc + 1, kc)
+        lane_done = fail & (k_sib >= m)
+        do_sib = sib & ~lane_done
+        ks = torch.clamp(k_sib, 0, top)
+        atk = ks[:, None]
+        asc = do_sib & fail
+        xs = x.gather(1, atk)[:, 0]
+        cs = cs + torch.where(asc[:, None] & (cols[None, :] < atk),
+                              xs[:, None] * mut_t[ks], zero)
+        pds = partdist.gather(1, atk)[:, 0]
+        dxs = dx.gather(1, atk)[:, 0]
+        ddxs = ddx.gather(1, atk)[:, 0]
+        zero_pd = (pds == 0) & is_svp
+        x_adv = torch.where(zero_pd, xs + 1, xs + dxs)
+        ddx_adv = torch.where(zero_pd, ddxs, -ddxs)
+        dx_adv = torch.where(zero_pd, dxs, ddx_adv - dxs)
+        sel_s = do_sib[:, None] & (cols[None, :] == atk)
+        x = torch.where(sel_s, x_adv[:, None], x)
+        dx = torch.where(sel_s, dx_adv[:, None], dx)
+        ddx = torch.where(sel_s, ddx_adv[:, None], ddx)
+        k = torch.where(descend, k_down, torch.where(do_sib, k_sib, k))
+        active = active & ~lane_done
+
+        # ---- refill finished lanes from the root queue ------------------
+        if cursor_host < R:
+            needv = ~active
+            rank = torch.cumsum(needv.long(), 0) - 1
+            ridx = cursor + rank
+            can = needv & (ridx < R)
+            ridx_c = torch.clamp(ridx, 0, R - 1)
+            rx, rpd = roots_x[ridx_c], roots_pd[ridx_c]
+            live = can & torch.isfinite(rpd) & (rpd <= A)
+            fx, fdx, fddx, fcenter, fpartdist, fcs = make_fresh(
+                rx, torch.where(live, rpd, zero))
+            sel = can[:, None]
+            x = torch.where(sel, fx, x)
+            dx = torch.where(sel, fdx, dx)
+            ddx = torch.where(sel, fddx, ddx)
+            center = torch.where(sel, fcenter, center)
+            cs = torch.where(sel, fcs, cs)
+            partdist = torch.where(sel, fpartdist, partdist)
+            k = torch.where(can, torch.full_like(k, top), k)
+            active = torch.where(can, live, active)
+            lane_root = torch.where(sel, rx, lane_root)
+            cursor = torch.clamp(cursor + needv.long().sum(), max=R)
+
+    K = min(B, _K_TOP)
+    negd, idx = torch.topk(-best_dist, K)
+    return {
+        "nodes": nodes,
+        "best_dist": -negd,
+        "best_dev": best_dev[idx],
+        "best_root": best_root[idx],
+        "sol_count": sol_count.sum(),
+        "A": A,
+        "cursor": cursor,
+        "steps": steps,
+    }
+
+
+def enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
+                            roots_pd, A0, *, G_real: int, batch: int,
+                            is_svp: bool, max_steps: int) -> dict:
+    """The G problems one after another; a real problem's final bound
+    bounds every later one (the TPU grid's shared bound, carried across
+    cells in order)."""
+    G, m, _ = mut.shape
+    shared = found = float("inf")
+    dist, devs, roots, As = [], [], [], []
+    nodes = torch.zeros(m, dtype=torch.int64, device=mut.device)
+    steps = 0
+    for g in range(G):
+        A_g = min(float(A0[g]), shared)
+        out = enum_run_plain(mut[g], rdiag[g], prune[g], mut_fix[g], cp0[g],
+                              roots_x[g], roots_pd[g], A_g, m=m,
+                              is_svp=is_svp, count_mode=False,
+                              max_steps=max_steps, batch=batch)
+        if g < G_real:
+            shared = min(shared, float(out["A"]))
+            found = min(found, float(out["best_dist"][0]))
+        dist.append(out["best_dist"][0])
+        devs.append(out["best_dev"][0])
+        roots.append(out["best_root"][0])
+        As.append(out["A"])
+        nodes += out["nodes"]
+        steps += out["steps"]
+    return {"dist": torch.stack(dist), "dev": torch.stack(devs),
+            "root": torch.stack(roots), "nodes": nodes,
+            "A": torch.stack(As),
+            "bound": torch.tensor(found, dtype=torch.float32), "steps": steps}

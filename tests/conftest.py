@@ -17,6 +17,7 @@ REFERENCE_LATTICES = "/root/reference/tests/lattices"
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running test")
+    config.addinivalue_line("markers", "cuda: needs a CUDA card; skips without one")
 
 
 @pytest.fixture
