@@ -4,16 +4,21 @@
     python3 chip_smoke.py              # every phase; needs one CUDA card
 
 Phases (each one fails the run if it fails):
-  1. report the card, build the CUDA kernel and the native C cores;
+  1. report the card, build the CUDA kernel (every template instance,
+     `-Xptxas -v` printed, no spills) and the native C cores;
   2. the kernel against its plain PyTorch version on the card, for each
-     launch form (root queue at 1024 and 16384 lanes, a single root with
-     nfix = 0) in count and search mode, a search whose bound shrinks
-     several times, and the grouped form as a block-60 tour launches it
-     (three rerandomized trials of one window, padded to G = 4, m = 64);
+     launch form (root queue, with the plain version at 1024 and 16384
+     lanes, a single root with nfix = 0) in count and search mode, a
+     search whose bound shrinks several times, and the grouped form as a
+     block-60 tour launches it (three rerandomized trials of one window,
+     padded to G = 4, m = 64); the same count at the persistent grid and
+     at a grid of one block; the shrinking-bound search's overhead over
+     several lattices;
   3. the main path: BKZ-2.0 with the shipped strategies on a dim-80 q-ary
      basis after a 40 -> 50 warm-up, one block-60 tour with the device
-     crossover at FPLLL_TPU_HYBRID_NODES=2000000, then the same tour on
-     the host C core alone;
+     crossover at FPLLL_TPU_HYBRID_NODES=2000000 (every launch on the
+     persistent grid, blocks per SM times SMs), then the same tour on the
+     host C core alone;
   4. one block-60 window through DeviceEnumerator and the native C core,
      each answer certified by the other implementation.
 
@@ -27,6 +32,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -35,6 +41,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_F32_FLOPS = 67e12       # non-tensor f32 peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12     # HBM3 rate, H100 SXM data sheet
 CROSSOVER = 2_000_000        # estimated nodes; windows above it go to the card
+# recorded times of the kernel before the walker redesign, one thread
+# per lane (NVIDIA H100 80GB HBM3, 700.00 W, PERF.md section 6): printed
+# for comparison on a line of their own, never as this run's measurements
+LANE_KERNEL_RECORDED_MS = {"queue d56 count": 108.47,
+                           "grouped G=3 (G=4) d60 search": 57.91}
 
 
 def log(msg: str) -> None:
@@ -117,15 +128,18 @@ def op_count(nodes) -> float:
     return float(sum(int(n) * (4 * k + 20) for k, n in enumerate(nodes)))
 
 
-def bound_ms(pack, nodes, lanes: int) -> tuple:
+def bound_ms(pack, nodes, slots: int) -> tuple:
     """Least time for the work: max(bytes / HBM rate, ops / f32 rate).
-    Bytes: each input tensor read once, each lane's best distance, root
-    index and coordinates and the per-level counters written once."""
+    Bytes: each input tensor read once; written once, the `slots` results
+    the function returns (distance, root index and m coordinates each:
+    the K best of one problem, or each problem's best) and the counters
+    (per-level nodes and solutions per problem, the two walk lengths)."""
     m = pack["mut"].shape[-1]
+    G = pack["mut"].shape[0] if pack["mut"].dim() == 3 else 1
     nbytes = sum(pack[k].numel() * pack[k].element_size() for k in
                  ("mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x",
                   "roots_pd"))
-    nbytes += lanes * (m + 2) * 4 + m * 8
+    nbytes += slots * (m + 2) * 4 + G * (m + 1) * 8 + 2 * 8
     t_bytes = nbytes / H100_HBM_BYTES
     t_ops = op_count(nodes.cpu().tolist()) / H100_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
@@ -168,8 +182,9 @@ def assert_best(name, kb: float, pb: float) -> float:
 # about a minute on the card. At that radius a search finds nothing, so
 # it runs in count mode only; search mode is held by the d40 cases and
 # by the shrinking-bound check. The 16384-lane case is the form the TPU
-# split into lane tiles: the same roots as "queue d40" over 16 times the
-# lanes.
+# split into lane tiles: the same roots as "queue d40" with the plain
+# version over 16 times the lanes (the kernel's walkers are set by the
+# card, so its launch is the queue form's).
 BOTH = (True, False)
 CHECK_CASES = [("queue d40 pruned", 40, 3, True, 1.0, False, 1024, BOTH),
                ("queue d40", 40, 3, False, 1.0, False, 1024, BOTH),
@@ -181,8 +196,15 @@ TIMED_CASE = "queue d56"
 # squared norm of its shortest basis vector, a ball that holds 30 vectors
 SHRINK_CASE = ("shrink d40 r1.3", 40, 3, 1.3)
 # search-mode nodes at most this multiple of the count-mode nodes at the
-# final bound (the walk's extra work while the bound was still falling)
+# final bound (the walk's extra work while the bound was still falling).
+# The ratio is set by the lattice and the number of walkers, which all
+# start at the first radius, not by timing: the kernel's stays within
+# 1.36-1.42 on this lattice; a search that never lowered its bound would
+# give the start radius' 11.6
 SHRINK_TOL = 1.5
+# other lattices of the shrink check's shape, whose kernel search overhead
+# is logged, not asserted: it ranges more widely than on the checked one
+SHRINK_SPREAD_SEEDS = tuple(range(5, 14))
 # relative error of a distance the kernel computes in f32 against the
 # exact norm of its vector: the center sums drift over a lane's
 # subtract/restore round trips (8.8e-5 measured on the block-60 window
@@ -191,6 +213,17 @@ F32_DIST_TOL = 2e-4
 # the grouped check's radius, times the union best: keeps the plain
 # version, which walks the three trials one after another, near 100 s
 GROUPED_RADIUS = 1.03
+
+
+def geometry_fields(out) -> dict:
+    """The launch geometry and walk lengths of one kernel run, for the
+    kernel-check lines."""
+    geo = out["geometry"]
+    return {"walkers": geo["walkers"], "W": geo["width"], "M": geo["M"],
+            "grid": geo["grid"], "blocks_per_sm": geo["blocks_per_sm"],
+            "sms": geo["sms"], "smem": geo["smem"],
+            "longest_walker_walk": int(out["steps"]),
+            "longest_root_walk": int(out["root_steps"])}
 
 
 def wrapper_ms(fn, reps: int = 3):
@@ -258,12 +291,14 @@ def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                    "nodes": total, "nodes_per_s": total / (k_ms * 1e-3),
                    "native_ms": n_ms, "native_nodes": n_nodes,
                    "best": kb, "counts_exact": exact,
-                   "longest_lane_walk": int(k_out["steps"]),
+                   **geometry_fields(k_out),
                    "plain_steps": int(p_out["steps"])}
-            rec["bound_ms"], rec["bound_by"] = bound_ms(pack, k_out["nodes"],
-                                                        lanes)
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                pack, k_out["nodes"], len(k_out["best_dist"]))
             if name == TIMED_CASE and count_mode:
                 timing = rec
+                rec["us_per_step"] = k_ms * 1e3 / rec["longest_walker_walk"]
+                rec["grid_1_block"] = grid_check(name, pack, kw, k_out, mr)
             forms.append(rec)
             log("kernel-check " + json.dumps(rec))
 
@@ -276,7 +311,43 @@ def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
     return forms, max(errs), timing
 
 
-def shrink_check(device, name, d, seed, radius):
+def grid_check(name, pack, kw, k_out, m_real) -> dict:
+    """The same count-mode problem on a grid of one block: per-level node
+    counts and the solution count identical to the persistent grid's (a
+    root's walk does not depend on which walker takes it). Its time over
+    its longest walker walk is the time of one step with few walkers per
+    SM."""
+    import numpy as np
+    from fplll_tpu_torch.enum import kernels
+
+    one, one_ms = wrapper_ms(lambda: kernels.enum_run(**pack, **kw, grid=1),
+                             reps=1)
+    assert one["geometry"]["grid"] == 1
+    a = k_out["nodes"].cpu().numpy()[:m_real]
+    b = one["nodes"].cpu().numpy()[:m_real]
+    assert np.array_equal(a, b), f"{name}: counts at grid 1 differ: {a} {b}"
+    assert int(one["sol_count"]) == int(k_out["sol_count"]), name
+    return {"walkers": one["geometry"]["walkers"], "counts_identical": True,
+            "kernel_ms": one_ms, "longest_walker_walk": int(one["steps"]),
+            "us_per_step": one_ms * 1e3 / int(one["steps"])}
+
+
+def kernel_search_overhead(device, d, seed, radius) -> float:
+    """The kernel's search-mode nodes over its count-mode nodes at the
+    bound the search ended at, on the shrink check's window shape."""
+    from fplll_tpu_torch.enum import kernels
+
+    _, mut, rdiag, prune, A, _ = uniform_window(d, seed, False, radius)
+    pack = packed_problem(mut, rdiag, prune, A, device)
+    mr = pack["m_real"]
+    kw = dict(is_svp=True, batch=1024, max_steps=1 << 30)
+    k_s = kernels.enum_run(**pack, count_mode=False, **kw)
+    final = dict(pack, A0=float(k_s["best_dist"][0]) * 1.00001)
+    k_f = kernels.enum_run(**final, count_mode=True, **kw)
+    return float(k_s["nodes"][:mr].sum()) / float(k_f["nodes"][:mr].sum())
+
+
+def shrink_check(device, name, d, seed, radius, spread=SHRINK_SPREAD_SEEDS):
     """Search mode with a bound that shrinks several times, at the main
     path's launch shape: an unpruned window whose ball holds tens of
     vectors, so lanes find several and the shared bound falls more than
@@ -285,7 +356,8 @@ def shrink_check(device, name, d, seed, radius):
     equal the plain version's per level; its search-mode nodes must lie
     between those and SHRINK_TOL times those, while the tree at the start
     radius holds at least 3 times more (so a kernel that ignored search
-    mode, or never re-read or lowered the bound, fails)."""
+    mode, or never re-read or lowered the bound, fails). The kernel's
+    ratio is also logged, not asserted, on the lattices of `spread`."""
     import torch
     from fplll_tpu_torch.enum import kernels
 
@@ -320,7 +392,9 @@ def shrink_check(device, name, d, seed, radius):
            "count_nodes_start_radius": n_start,
            "search_over_final": n_k / n_final,
            "counts_exact_final_bound": exact,
-           "longest_lane_walk": int(k_s["steps"])}
+           **geometry_fields(k_s)}
+    rec["search_over_final_by_seed"] = {seed: n_k / n_final, **{
+        s: kernel_search_overhead(device, d, s, radius) for s in spread}}
     log("kernel-check " + json.dumps(rec))
     assert n_start >= 3 * n_final, f"{name}: the check cannot tell " \
         f"({n_start} nodes at the start radius, {n_final} at the end)"
@@ -444,6 +518,7 @@ def grouped_check(device, dim, block, radius):
         float(t["A0"][3]) == 0.0, (G, m, G_real)
     kw = dict(G_real=G_real, batch=1024, is_svp=True, max_steps=1 << 30)
     k_out, k_ms = wrapper_ms(lambda: kernels.enum_run_grouped(**t, **kw))
+    name = f"grouped G={G_real} (G={G}) d{block}"
     plain_args = {k: v for k, v in t.items() if k != "m_real"}
     p_out, p_s = timed(lambda: kernels.enum_run_grouped_plain(
         **plain_args, **kw), torch.cuda.synchronize)
@@ -465,7 +540,7 @@ def grouped_check(device, dim, block, radius):
     assert abs(exact - c_best) <= 1e-9 * c_best, \
         f"grouped: the kernel's vector {exact} against the C core's {c_best}"
     nodes = float(k_out["nodes"].sum())
-    rec = {"form": f"grouped G={G_real} (G={G}) d{block}", "mode": "search",
+    rec = {"form": name, "mode": "search",
            "m": m, "m_reals": gp["m_reals"],
            "R": t["roots_pd"].shape[1], "B": 1024,
            "kernel_ms": k_ms, "plain_ms": p_s * 1e3, "nodes": nodes,
@@ -476,9 +551,9 @@ def grouped_check(device, dim, block, radius):
            "c_core_trial_best": gp["trial_best_c"],
            "certified_trials": gp["certified"], "exact_norm": exact,
            "shared_bound": float(k_out["bound"]),
-           "longest_lane_walk": int(k_out["steps"]),
+           **geometry_fields(k_out),
            "plain_steps": int(p_out["steps"])}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(t, k_out["nodes"], G * 1024)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(t, k_out["nodes"], G)
     log("kernel-check " + json.dumps(rec))
     return rec, err
 
@@ -568,6 +643,7 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
     dev_wall, dev_total, dev_nodes, g_max, dev_timers = bkz_tour(
         b_dev, strategies, block, device, crossover)
     launches = dict(kernels.LAUNCHES)
+    grids = sorted(set().union(*kernels.GRIDS.values()))
     kernels.reset_launch_counts()
     RandGen.init_with_seed(12)
     host_wall, host_total, host_dev, _, host_timers = bkz_tour(
@@ -582,6 +658,8 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
            "device_nodes": dev_nodes,
            "device_node_share": dev_nodes / max(dev_total, 1),
            "g_max": g_max, "launches": launches,
+           # (grid, blocks per SM, SMs) of the tour's launches
+           "grids": grids,
            "host_tour_wall_s": host_wall, "host_tour_nodes": host_total,
            "rhf_warmup_bkz50": rhf_warm, "rhf_device_tour": rhf_dev,
            "rhf_host_tour": rhf_host,
@@ -592,6 +670,8 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
     log("main-path " + json.dumps(rec))
     assert dev_nodes > 0, "no window reached the card"
     assert sum(launches.values()) > 0, "the kernel was never launched"
+    assert all(g == bps * sms for g, bps, sms in grids), \
+        f"a launch did not fill the card: {grids}"
     assert red_dev and red_host, "BKZ output is not LLL-reduced"
     # BKZ-60 regime, calibrated on the host-only tour of the same input:
     # the host tour takes the root-Hermite factor from rhf_warm down to
@@ -724,6 +804,14 @@ def main() -> int:
     log(f"build enum_chunk.cu (nvcc): {time.perf_counter() - t0:.3f} s")
     for line in kernels.BUILD_LOG.strip().splitlines():
         log(f"  ptxas: {line.strip()}")
+    frames = [tuple(int(v) for v in f) for f in re.findall(
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+        r"(\d+) bytes spill loads", kernels.BUILD_LOG)]
+    log(f"ptxas: {len(frames)} kernel instances, (stack frame, spill "
+        f"stores, spill loads) bytes: {frames}")
+    # M in (32, 64, 128) x (shared, global memory), at W = ENUM_WIDTH
+    assert len(frames) == 3 * 2, "an instance is missing"
+    assert all(st == ld == 0 for _, st, ld in frames), "registers spill"
     for name, get in (("enum_core", native.get_lib),
                       ("lll_core", native.get_lll_lib),
                       ("bkz_core", native.get_bkz_lib)):
@@ -749,6 +837,12 @@ def main() -> int:
         f"on the card, dim-56 window count mode: {timing['plain_ms']:.1f} ms "
         f"against the kernel's {timing['kernel_ms']:.1f} ms")
 
+    grouped = next(f for f in forms if f["form"].startswith("grouped"))
+    by_form = {"queue d56 count": timing["kernel_ms"],
+               f"{grouped['form']} search": grouped["kernel_ms"]}
+    log("recorded times of the one-thread-per-lane kernel (PERF.md "
+        "section 6, not measured in this run): "
+        + json.dumps(LANE_KERNEL_RECORDED_MS))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "enum_chunk_kernel",
@@ -763,6 +857,7 @@ def main() -> int:
         "launches_by_wrapper": main_rec["launches"],
         "max_abs_err": max_err,
         "ms": timing["kernel_ms"],
+        "ms_by_form": by_form,
         "plain_ms": timing["plain_ms"],
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
@@ -774,6 +869,9 @@ def main() -> int:
                      "bound; grouped union best 1e-4 relative, its exact "
                      "norm the C core's to 1e-9",
         "shape": {k: timing[k] for k in ("m", "m_real", "nfix", "R", "B")},
+        "geometry": {k: timing[k] for k in (
+            "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
+            "longest_walker_walk", "longest_root_walk")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

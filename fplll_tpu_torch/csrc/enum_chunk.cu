@@ -8,24 +8,25 @@
  * _chunk_call). One launch enumerates G >= 1 SVP/CVP problems to the end:
  *   - G = 1 with a root queue is the _chunk_call_rq form;
  *   - G > 1 is the grouped-trial form: one shared shrinking bound, which
- *     only the first G_real problems write (padding problems have A0 = 0
- *     and drain their queue on the first pop);
+ *     only the first G_real problems write; problems G_real..G-1 are
+ *     padding and are never scheduled;
  *   - a queue holding a single zero-length root (nfix = 0) is the
  *     _chunk_call form; the lane-tile split that VMEM forced on the TPU
  *     has no counterpart here.
  *
  * What it computes (the contract of the JAX package's tpu._make_step /
- * _enum_run, f32 primal): each lane pops a subtree root with atomicAdd on
- * its problem's cursor and walks the subtree depth-first, one node per
+ * _enum_run, f32 primal): each walker pops a subtree root with atomicAdd
+ * on its problem's cursor and walks the subtree depth-first, one node per
  * iteration - bound test pd + (x - c)^2 r <= prune * A, center partial
  * sums subtracted on descend and restored on ascend, zig-zag siblings
  * around the rounded center, SVP symmetry breaking (x >= 0 and x + 1
  * siblings under an all-zero prefix), per-level node counters, the best
- * leaf per lane. A lane at level 1 absorbs the whole level-0 sibling
- * range analytically (pallas_kernel.py:254-304) and then repeats the
- * stepwise walk's cs[0] subtract/restore round trip, so count-mode node
- * counts equal the plain version's exactly. Roots are sorted by partial
- * distance: the first root over the bound drains the queue.
+ * leaf per walker and problem. A walker at level 1 absorbs the whole
+ * level-0 sibling range analytically (pallas_kernel.py:254-304) and then
+ * repeats the stepwise walk's cs[0] subtract/restore round trip, so
+ * count-mode node counts equal the plain version's exactly. Roots are
+ * sorted by partial distance: the first root over the bound drains the
+ * queue.
  *
  * Left out, as they change only how work is scheduled: the barren-descend
  * lookahead and the in-kernel top-sibling donation of the TPU kernel.
@@ -35,20 +36,58 @@
  * passes -fmad=false) so nothing is contracted to an FMA, rdiag = 1e30 on
  * virtual levels and pd = 1e30 on padded roots are honoured as data.
  *
- * What bounds it on this card: each node costs a bound test plus O(k)
- * center-sum updates on per-lane arrays (x, cs, pd, the level counters)
- * that live in local memory, so a lane is latency-bound on dependent
- * local-memory loads, and lanes of one warp diverge across descend,
- * ascend and leaf paths. The f32 work per node (about 4k flops at level
- * k) is far below the card's f32 rate and the input bytes are a few MB,
- * so neither roofline bound is near. The design keeps mu, rdiag and
- * prune in shared memory with a padded row stride (lanes at different
- * levels read different banks), keeps the bound as one global float
- * updated with atomicMin on its bit pattern (a stale read only wastes
- * work, as on the TPU), and adds the per-lane counters into uint64
- * globals once, at the end. Only B lanes per problem are resident, which
- * leaves most of the card idle; more lanes and warp-cooperative walks are
- * later work.
+ * What bounds it on this card: latency. A walk is a chain of dependent
+ * steps (bound test, then a descend or an ascend that moves O(k) center
+ * sums, then the next bound test); the f32 work per node (about 4k flops
+ * at level k) is far below the card's f32 rate and the input bytes are a
+ * few MB, so neither roofline bound is near. The kernel's time is the
+ * longest walk times the time of one step, so the design shortens the
+ * step and spreads the walks:
+ *   - one walker is a group of W = ENUM_WIDTH threads (32: measured
+ *     fastest of 8, 16 and 32 on the card, PERF.md section 6; narrower
+ *     groups share a warp and their walks diverge; the host emulation in
+ *     tests/ builds the source at every W with -DENUM_WIDTH).
+ *     Thread t of the group owns levels t, t + W, t + 2W, ... below the
+ *     height bucket M (32, 64 or 128, a template parameter), and keeps
+ *     cs, x, pd and the node counters of those levels in registers
+ *     (arrays of M / W entries indexed only by unrolled constants and
+ *     written by selects, so the owner's update does not split the warp).
+ *     A descend or an ascend is one mul and one add per owned level,
+ *     neighbouring threads reading neighbouring mu entries of one
+ *     shared-memory row. Every thread of the group also holds the walk's
+ *     scalars: level k, its x, center and partial distance, the parent
+ *     level's three (the next ascend's sibling), and the center of level
+ *     k - 1 before x_k is subtracted with mu[k][k-1] (the next descend's
+ *     center), so a step needs a shuffle only to refill them from their
+ *     owners, after the step has been taken. All threads run the bound
+ *     test, the zig-zag step and the leaf-range absorption on the same
+ *     values, so control flow is uniform within a walker. Each cs[j] goes
+ *     through the same operations in the same order as in a one-thread
+ *     walk, so a root's walk, and a count, is bit-identical at every W
+ *     and every grid;
+ *   - the grid is persistent: the launcher sizes it from the occupancy of
+ *     the instance (blocks per SM times SMs), and walkers pop roots until
+ *     every real problem's queue has drained, moving on to the next real
+ *     problem when theirs is empty, so the card, not the root batch, sets
+ *     the number of walkers, and no walker waits on another;
+ *   - mu, rdiag and prune of all real problems sit in shared memory where
+ *     they fit (17 KB per problem at m = 64; row stride m + 1), else they
+ *     are read from global memory (the SMEM template parameter, so that no
+ *     pointer can be either); the bound is one global float, lowered with
+ *     atomicMin on its bit pattern and re-read every 32 iterations (a
+ *     stale read only wastes work, as on the TPU), when the step cap is
+ *     checked too; counters go to uint64 globals once per walker and
+ *     problem.
+ * What bounds it now: the longest walk under a single root. Besides the
+ * longest walk of a walker, the kernel records the longest walk under one
+ * root; on the main path's trees the two are equal, so one root's subtree
+ * is the whole critical path, and a step of it is a stream of a few dozen
+ * mostly dependent instructions (chip_smoke.py prints both walks and the
+ * time per step at a grid of one block). Computing both moves before
+ * the bound test picks one, to drop the branches, issues more
+ * instructions and was slower. Splitting work below a root is the next
+ * step. No stack frame is needed: the walker state is registers only
+ * (`-Xptxas -v`, printed by chip_smoke.py phase 1).
  */
 
 #include <cuda_runtime.h>
@@ -56,6 +95,11 @@
 #include <stdint.h>
 
 #define ENUM_MAXM 128
+#define ENUM_THREADS 256   /* threads per block, every instance */
+#ifndef ENUM_WIDTH
+#define ENUM_WIDTH 32      /* threads per walker */
+#endif
+#define ENUM_SMEM_MAX 232448  /* dynamic shared memory a block may hold */
 
 struct EnumParams {
   const float *mut;      /* (G, m, m) transposed mu: mut[j][k] = mu_kj, j<k */
@@ -69,16 +113,45 @@ struct EnumParams {
   const int *m_real;     /* (G,) number of real (non-padding) levels */
   int *cursor;           /* (G,) root queue cursors, start at 0 */
   int *bound;            /* (1,) shared bound, f32 bit pattern */
-  float *bdist;          /* (G*B,) best distance per lane */
-  float *bdev;           /* (G*B, m) device coordinates of that best */
-  int *bri;              /* (G*B,) root index of that best */
-  unsigned long long *nodes; /* (G, m) node counters */
-  unsigned long long *sols;  /* (G,) solution counters */
-  unsigned long long *steps; /* (1,) longest lane walk, in iterations */
-  int *aborted;          /* (1,) set when a lane passed max_steps */
+  float *bdist;          /* (G*walkers,) best distance per problem and
+                            walker, +inf until the walker finds one */
+  float *bdev;           /* (G*walkers, m) device coordinates of that best */
+  int *bri;              /* (G*walkers,) root index of that best */
+  unsigned long long *nodes;      /* (G, m) node counters */
+  unsigned long long *sols;       /* (G,) solution counters */
+  unsigned long long *steps;      /* (1,) longest walk of a walker */
+  unsigned long long *root_steps; /* (1,) longest walk under one root */
+  int *aborted;          /* (1,) set when a walker passed max_steps (the
+                            cap is checked every 32 iterations) */
   long long max_steps;
-  int G, G_real, m, nfixp, R, B, is_svp, count_mode;
+  int G, G_real, m, nfixp, R, walkers, is_svp, count_mode;
 };
+
+/* launch geometry of one instance, as the launcher chooses it */
+struct EnumGeometry {
+  int grid, threads, width, M, blocks_per_sm, sms, smem, walkers;
+};
+
+/* floats of one problem's mu (row stride m + 1), rdiag and prune */
+__host__ __device__ inline int enum_problem_floats(int m) {
+  return m * (m + 1) + 2 * m;
+}
+
+/* dynamic shared memory of a launch: all real problems, or none when
+   they do not fit (then the kernel reads them from global memory) */
+__host__ __device__ inline int enum_smem_bytes(int m, int G_real) {
+  const long long b = (long long)G_real * enum_problem_floats(m) * 4;
+  return b <= ENUM_SMEM_MAX ? (int)b : 0;
+}
+
+#ifdef __CUDACC__
+__device__ __forceinline__ float *dynamic_smem() {
+  extern __shared__ float enum_smem[];
+  return enum_smem;
+}
+#else
+float *dynamic_smem(); /* the host emulation's per-block buffer */
+#endif
 
 namespace {
 
@@ -112,173 +185,337 @@ __device__ __forceinline__ bool leaf_ok(float v, float c0, float nd, float r0,
   return f_add(nd, f_mul(f_mul(a, a), r0)) <= bound0;
 }
 
+/* a[slot], and a[slot] = v in the owner only, with constant indices and
+   selects, so that the per-thread level arrays stay in registers and the
+   owner's update does not split the warp */
+template <int S, typename T>
+__device__ __forceinline__ T pick(const T (&a)[S], int slot) {
+  T v = a[0];
+#pragma unroll
+  for (int i = 1; i < S; i++) v = i == slot ? a[i] : v;
+  return v;
+}
+
+template <int S, typename T>
+__device__ __forceinline__ void put(T (&a)[S], bool owner, int slot, T v) {
+#pragma unroll
+  for (int i = 0; i < S; i++) a[i] = owner && i == slot ? v : a[i];
+}
+
 }  // namespace
 
-__global__ void __launch_bounds__(64) enum_chunk_kernel(EnumParams P) {
-  extern __shared__ float smem[];
-  const int m = P.m, ld = m + 1, nfix = P.nfixp;
-  const int bpp = P.B / blockDim.x;
-  const int g = blockIdx.x / bpp;
-  const int lane = (blockIdx.x - g * bpp) * blockDim.x + threadIdx.x;
-  const size_t gl = (size_t)g * P.B + lane;
-
-  /* s_mu[k * ld + j] = mut[j][k] for j < k: the column a descend from level
-     k subtracts, contiguous in j; the odd stride spreads lanes at
-     different levels over different banks */
-  float *s_mu = smem;
-  float *s_r = s_mu + m * ld;
-  float *s_p = s_r + m;
-  const float *mut = P.mut + (size_t)g * m * m;
-  for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
-    const int j = i / m, k = i - j * m;
-    s_mu[k * ld + j] = (j < k) ? mut[i] : 0.f;
-  }
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    s_r[i] = P.rdiag[(size_t)g * m + i];
-    s_p[i] = P.prune[(size_t)g * m + i];
-  }
-  __syncthreads();
-
-  const int mr = P.m_real[g];
+/* SMEM: mu, rdiag and prune of the real problems sit in shared memory
+   (enum_smem_bytes > 0), else they are read from global memory */
+template <int M, int W, bool SMEM>
+__global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) {
+  static_assert(M % W == 0 && W >= 8 && W <= 32 && (W & (W - 1)) == 0,
+                "walker width: 8, 16 or 32 threads");
+  constexpr int S = M / W;  /* levels each thread owns */
+  const int m = P.m, ld = m + 1, nfix = P.nfixp, R = P.R;
+  const int t = threadIdx.x & (W - 1);
+  const unsigned gmask =
+      W == 32 ? 0xffffffffu
+              : ((1u << W) - 1u) << (threadIdx.x & 31 & ~(W - 1));
+  const int walker = (int)((blockIdx.x * blockDim.x + threadIdx.x) / W);
   const bool svp = P.is_svp != 0, count_mode = P.count_mode != 0;
-  const bool writes_bound = !count_mode && g < P.G_real;
-  const float A0 = P.A0[g];
-  const float *mf = P.mut_fix + (size_t)g * m * nfix;
-  const float *cp0 = P.cp0 + (size_t)g * m;
-  const float *roots_pd = P.roots_pd + (size_t)g * P.R;
-  const float *roots_x = P.roots_x + (size_t)g * P.R * nfix;
-  float *bdev = P.bdev + gl * m;
+  const int pf = enum_problem_floats(m);
 
-  float x[ENUM_MAXM], cs[ENUM_MAXM], pd[ENUM_MAXM];
-  unsigned long long cnt[ENUM_MAXM];
-  for (int j = 0; j < mr; j++) cnt[j] = 0ull;
-  unsigned long long sols = 0ull, iters = 0ull;
-  float bdist = INFINITY;
-  int bri = 0;
+  /* s_mu[k * ld + j] = mut[j][k] for j < k: the row a descend from level
+     k subtracts, contiguous in j; then rdiag and prune */
+  float *smem = dynamic_smem();
+  if (SMEM) {
+    for (int g = 0; g < P.G_real; g++) {
+      float *s_mu = smem + g * pf;
+      const float *mut = P.mut + (size_t)g * m * m;
+      for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
+        const int j = i / m, k = i - j * m;
+        s_mu[k * ld + j] = (j < k) ? mut[i] : 0.f;
+      }
+      for (int i = threadIdx.x; i < m; i += blockDim.x) {
+        s_mu[m * ld + i] = P.rdiag[(size_t)g * m + i];
+        s_mu[m * ld + m + i] = P.prune[(size_t)g * m + i];
+      }
+    }
+    __syncthreads();
+  }
+
+  /* the shared bound, read by one thread and broadcast to the group */
+  auto group_bound = [&]() {
+    float b = 0.f;
+    if (t == 0) b = load_bound(P.bound);
+    return __shfl_sync(gmask, b, 0, W);
+  };
+
+  float cs[S] = {}, x[S] = {}, pd[S] = {};
+  unsigned long long cnt[S];
+  unsigned long long iters = 0ull, longest_root = 0ull;
   bool aborted = false;
-  float A = count_mode ? A0 : fminf(A0, load_bound(P.bound));
 
-  for (;;) {
-    const int ridx = atomicAdd(P.cursor + g, 1);
-    if (ridx >= P.R) break;
-    const float rpd = roots_pd[ridx];
-    if (!count_mode) A = fminf(A, load_bound(P.bound));
-    if (!(rpd <= A)) {
-      atomicMax(P.cursor + g, P.R);
-      break;
-    }
-    /* fresh lane: cs = cp0 - sum_f root_f * mut_fix[:, f], summed in f
-       order (the plain version sums in the same order) */
-    const float *root = roots_x + (size_t)ridx * nfix;
-    for (int j = 0; j < mr; j++) {
-      float acc = 0.f;
-      for (int f = 0; f < nfix; f++)
-        acc = f_add(acc, f_mul(root[f], mf[(size_t)j * nfix + f]));
-      cs[j] = f_sub(cp0[j], acc);
-    }
-    int k = mr - 1;
-    float x0 = cround(cs[k]);
-    if (svp && rpd == 0.f) x0 = fmaxf(x0, 0.f);
-    x[k] = x0;
-    pd[k] = rpd;
+  for (int q = 0; q < P.G_real && !aborted; q++) {
+    const int g = (walker + q) % P.G_real;
+    /* mu[k][j], rdiag[k] and prune[k] of problem g: shared-memory
+       offsets in one instance, global pointers in the other, never a
+       pointer that could be either (that would make every shared load
+       convert a generic address) */
+    const int so = g * pf;
+    const float *g_mut = P.mut + (size_t)g * m * m;
+    const float *g_r = P.rdiag + (size_t)g * m, *g_p = P.prune + (size_t)g * m;
+    auto mu = [&](int k, int j) {
+      return SMEM ? smem[so + k * ld + j] : g_mut[(size_t)j * m + k];
+    };
+    auto rdiag = [&](int k) { return SMEM ? smem[so + m * ld + k] : g_r[k]; };
+    auto prune = [&](int k) {
+      return SMEM ? smem[so + m * ld + m + k] : g_p[k];
+    };
+    const int mr = P.m_real[g];
+    const float A0 = P.A0[g];
+    const float *mf = P.mut_fix + (size_t)g * m * nfix;
+    const float *cp0 = P.cp0 + (size_t)g * m;
+    const float *roots_pd = P.roots_pd + (size_t)g * R;
+    const float *roots_x = P.roots_x + (size_t)g * R * nfix;
+    const size_t slot_gw = (size_t)g * P.walkers + walker;
+    float *bdev = P.bdev + slot_gw * m;
+#pragma unroll
+    for (int i = 0; i < S; i++) cnt[i] = 0ull;
+    unsigned long long sols = 0ull;
+    float bdist = INFINITY;
+    float A = count_mode ? A0 : fminf(A0, group_bound());
 
     for (;;) {
-      if (++iters > (unsigned long long)P.max_steps) {
-        aborted = true;
+      int ridx = 0;
+      if (t == 0) ridx = atomicAdd(P.cursor + g, 1);
+      ridx = __shfl_sync(gmask, ridx, 0, W);
+      if (ridx >= R) break;
+      const float rpd = roots_pd[ridx];
+      if (!count_mode) A = fminf(A, group_bound());
+      if (!(rpd <= A)) {
+        if (t == 0) atomicMax(P.cursor + g, R);
         break;
       }
-      if (!count_mode && (iters & 31ull) == 0ull)
-        A = fminf(A, load_bound(P.bound));
-      const float alpha = f_sub(x[k], cs[k]);
-      const float nd = f_add(pd[k], f_mul(f_mul(alpha, alpha), s_r[k]));
-      if (nd <= f_mul(s_p[k], A)) {
-        cnt[k]++;
-        if (k == 1) {
-          /* the whole level-0 sibling range [lo, hi] at once */
-          const float t = f_mul(x[1], s_mu[ld]);
-          const float c0 = f_sub(cs[0], t);
-          const float r0 = s_r[0];
-          const float bound0 = f_mul(s_p[0], A);
-          const float w = __fsqrt_rn(
-              __fdiv_rn(fmaxf(f_sub(bound0, nd), 0.f), r0));
-          float lo = ceilf(f_sub(c0, w)), hi = floorf(f_add(c0, w));
-          /* one endpoint correction each way: the count then equals the
-             stepwise walk's per-leaf bound tests */
-          if (leaf_ok(f_add(hi, 1.f), c0, nd, r0, bound0)) hi = f_add(hi, 1.f);
-          if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, 1.f);
-          if (leaf_ok(f_sub(lo, 1.f), c0, nd, r0, bound0)) lo = f_sub(lo, 1.f);
-          if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, 1.f);
-          const bool trivial = svp && nd == 0.f;
-          if (trivial) lo = fmaxf(lo, 0.f);
-          const float n = fmaxf(f_add(f_sub(hi, lo), 1.f), 0.f);
-          cnt[0] += (unsigned long long)n;
-          sols += (unsigned long long)(trivial ? fmaxf(f_sub(n, 1.f), 0.f) : n);
-          const bool have = trivial ? (hi >= 1.f) : (n > 0.f);
-          if (have) {
-            const float xb = trivial ? 1.f : fminf(fmaxf(cround(c0), lo), hi);
-            const float ab = f_sub(xb, c0);
-            const float db = f_add(nd, f_mul(f_mul(ab, ab), r0));
-            if (db < bdist) {
-              bdist = db;
-              bri = ridx;
-              bdev[0] = xb;
-              for (int j = 1; j < mr; j++) bdev[j] = x[j];
-            }
-            if (!count_mode && db < A) {
-              A = db;
-              if (writes_bound) atomicMin(P.bound, __float_as_int(db));
-            }
-          }
-          /* the stepwise walk descends to level 0 and restores on the way
-             back up; repeat that round trip so later centers round alike */
-          cs[0] = f_add(c0, t);
-          x[1] = next_sibling(x[1], cs[1], pd[1], svp);
-        } else {
-          const float xv = x[k];
-          const float *col = s_mu + k * ld;
-          for (int j = 0; j < k; j++) cs[j] = f_sub(cs[j], f_mul(xv, col[j]));
-          --k;
-          pd[k] = nd;
-          x[k] = cround(cs[k]);
+      /* fresh root: cs = cp0 - sum_f root_f * mut_fix[:, f], summed in f
+         order (the plain version sums in the same order) */
+      const float *root = roots_x + (size_t)ridx * nfix;
+#pragma unroll
+      for (int i = 0; i < S; i++) {
+        const int j = t + W * i;
+        if (j < mr) {
+          float acc = 0.f;
+          for (int f = 0; f < nfix; f++)
+            acc = f_add(acc, f_mul(root[f], mf[(size_t)j * nfix + f]));
+          cs[i] = f_sub(cp0[j], acc);
         }
-      } else {
-        if (++k >= mr) break;
-        const float xv = x[k];
-        const float *col = s_mu + k * ld;
-        for (int j = 0; j < k; j++) cs[j] = f_add(cs[j], f_mul(xv, col[j]));
-        x[k] = next_sibling(xv, cs[k], pd[k], svp);
       }
+      /* the walker's registers, the same in every thread of the group:
+         level k and its x, center and partial distance; the center of
+         level k - 1 before x_k is subtracted (cn) and mu[k][k-1] (mkn),
+         which give the next descend's center without a shuffle; the
+         parent level k + 1's x, center and partial distance, which give
+         the next ascend's sibling without one. The owners' copies in x,
+         cs and pd trail them by one shuffle, off the chain of dependent
+         steps. */
+      int k = mr - 1;
+      float ck = __shfl_sync(gmask, pick(cs, k / W), k & (W - 1), W);
+      float xk = cround(ck);
+      if (svp && rpd == 0.f) xk = fmaxf(xk, 0.f);
+      float pdk = rpd, rk = rdiag(k), pk = prune(k);
+      float cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
+      float mkn = mu(k, k - 1);
+      float xp = 0.f, cp = 0.f, pdp = 0.f;  /* no level above the root */
+      const unsigned long long iters0 = iters;
+
+      for (;;) {
+        /* every 32 iterations: the step cap, and the shared bound */
+        if ((++iters & 31ull) == 0ull) {
+          if (iters > (unsigned long long)P.max_steps) {
+            aborted = true;
+            break;
+          }
+          if (!count_mode) A = fminf(A, group_bound());
+        }
+        const float alpha = f_sub(xk, ck);
+        const float nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
+        if (nd <= f_mul(pk, A)) {
+          put(cnt, t == (k & (W - 1)), k / W, pick(cnt, k / W) + 1ull);
+          if (k == 1) {
+            /* the whole level-0 sibling range [lo, hi] at once */
+            const float tt = f_mul(xk, mkn);
+            const float c0 = f_sub(cn, tt);
+            const float r0 = rdiag(0);
+            const float bound0 = f_mul(prune(0), A);
+            const float w = __fsqrt_rn(
+                __fdiv_rn(fmaxf(f_sub(bound0, nd), 0.f), r0));
+            float lo = ceilf(f_sub(c0, w)), hi = floorf(f_add(c0, w));
+            /* one endpoint correction each way: the count then equals the
+               stepwise walk's per-leaf bound tests */
+            if (leaf_ok(f_add(hi, 1.f), c0, nd, r0, bound0)) hi = f_add(hi, 1.f);
+            if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, 1.f);
+            if (leaf_ok(f_sub(lo, 1.f), c0, nd, r0, bound0)) lo = f_sub(lo, 1.f);
+            if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, 1.f);
+            const bool trivial = svp && nd == 0.f;
+            if (trivial) lo = fmaxf(lo, 0.f);
+            const float n = fmaxf(f_add(f_sub(hi, lo), 1.f), 0.f);
+            cnt[0] += t == 0 ? (unsigned long long)n : 0ull;
+            sols += (unsigned long long)(trivial ? fmaxf(f_sub(n, 1.f), 0.f) : n);
+            const bool have = trivial ? (hi >= 1.f) : (n > 0.f);
+            if (have) {
+              const float xb = trivial ? 1.f : fminf(fmaxf(cround(c0), lo), hi);
+              const float ab = f_sub(xb, c0);
+              const float db = f_add(nd, f_mul(f_mul(ab, ab), r0));
+              if (db < bdist) {
+                bdist = db;
+#pragma unroll
+                for (int i = 0; i < S; i++) {
+                  const int j = t + W * i;
+                  if (j < mr) bdev[j] = j == 0 ? xb : j == 1 ? xk : x[i];
+                }
+                if (t == 0) {
+                  P.bdist[slot_gw] = db;
+                  P.bri[slot_gw] = ridx;
+                }
+              }
+              if (!count_mode && db < A) {
+                A = db;
+                if (t == 0) atomicMin(P.bound, __float_as_int(db));
+              }
+            }
+            /* the stepwise walk descends to level 0 and restores on the
+               way back up; repeat that round trip so later centers round
+               alike */
+            cn = f_add(c0, tt);
+            cs[0] = t == 0 ? cn : cs[0];
+            xk = next_sibling(xk, ck, pdk, svp);
+          } else {
+            /* descend: the owners subtract x_k mu[k][j] from cs[j], j < k */
+#pragma unroll
+            for (int i = 0; i < S; i++) {
+              const int j = t + W * i;
+              const float v = f_sub(cs[i], f_mul(xk, mu(k, min(j, m - 1))));
+              if (j < k) cs[i] = v;
+            }
+            put(x, t == (k & (W - 1)), k / W, xk);
+            put(pd, t == (k & (W - 1)), k / W, pdk);
+            xp = xk;
+            cp = ck;
+            pdp = pdk;
+            --k;
+            ck = f_sub(cn, f_mul(xp, mkn));  /* = the owner's new cs[k] */
+            xk = cround(ck);
+            pdk = nd;
+            rk = rdiag(k);
+            pk = prune(k);
+            cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
+            mkn = mu(k, k - 1);
+          }
+        } else {
+          /* ascend: the owners restore cs[j], j < k + 1, with x_{k+1} */
+          if (++k >= mr) break;
+#pragma unroll
+          for (int i = 0; i < S; i++) {
+            const int j = t + W * i;
+            const float v = f_add(cs[i], f_mul(xp, mu(k, min(j, m - 1))));
+            if (j < k) cs[i] = v;
+          }
+          mkn = mu(k, k - 1);
+          cn = f_add(ck, f_mul(xp, mkn));  /* = the owner's restored cs[k-1] */
+          xk = next_sibling(xp, cp, pdp, svp);
+          ck = cp;
+          pdk = pdp;
+          rk = rdiag(k);
+          pk = prune(k);
+          if (k + 1 < mr) {
+            const int own = (k + 1) & (W - 1), s = (k + 1) / W;
+            xp = __shfl_sync(gmask, pick(x, s), own, W);
+            pdp = __shfl_sync(gmask, pick(pd, s), own, W);
+            cp = __shfl_sync(gmask, pick(cs, s), own, W);
+          }
+        }
+      }
+      if (iters - iters0 > longest_root) longest_root = iters - iters0;
+      if (aborted) break;
     }
-    if (aborted) break;
+
+#pragma unroll
+    for (int i = 0; i < S; i++) {
+      const int j = t + W * i;
+      if (j < mr && cnt[i]) atomicAdd(P.nodes + (size_t)g * m + j, cnt[i]);
+    }
+    if (t == 0 && sols) atomicAdd(P.sols + g, sols);
   }
 
-  P.bdist[gl] = bdist;
-  P.bri[gl] = bri;
-  for (int j = 0; j < mr; j++)
-    if (cnt[j]) atomicAdd(P.nodes + (size_t)g * m + j, cnt[j]);
-  if (sols) atomicAdd(P.sols + g, sols);
-  atomicMax(P.steps, iters);
-  if (aborted) atomicExch(P.aborted, 1);
+  if (t == 0) {
+    atomicMax(P.steps, iters);
+    atomicMax(P.root_steps, longest_root);
+    if (aborted) atomicExch(P.aborted, 1);
+  }
+}
+
+typedef void (*EnumKernel)(EnumParams);
+
+/* the instance for a launch over G_real problems of height m (nullptr if
+   none) */
+static EnumKernel enum_instance(int m, int G_real) {
+#define ENUM_INSTANCES(MM) \
+  {enum_chunk_kernel<MM, ENUM_WIDTH, false>, \
+   enum_chunk_kernel<MM, ENUM_WIDTH, true>}
+  static const EnumKernel table[3][2] = {
+      ENUM_INSTANCES(32), ENUM_INSTANCES(64), ENUM_INSTANCES(128)};
+#undef ENUM_INSTANCES
+  const int b = m <= 32 ? 0 : m <= 64 ? 1 : 2;
+  if (m < 2 || m > ENUM_MAXM || G_real < 1) return nullptr;
+  return table[b][enum_smem_bytes(m, G_real) > 0];
 }
 
 #ifdef __CUDACC__
 /* host launcher (nvcc only; tests/enum_chunk_host/ compiles the device
    code above with a host C++ compiler to check it without a card) */
-extern "C" int enum_chunk_launch(const EnumParams *hp, int threads,
+
+static int enum_bucket(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : 128; }
+
+/* The geometry of a launch over problems of height m with G_real real
+   problems: grid 0 means blocks per SM (from the occupancy of the
+   instance with its dynamic shared memory) times the SMs of the current
+   device. */
+extern "C" int enum_chunk_geometry(int m, int G_real, int grid,
+                                   EnumGeometry *out) {
+  const EnumKernel fn = enum_instance(m, G_real);
+  if (!fn || G_real < 1 || grid < 0) return (int)cudaErrorInvalidValue;
+  const int smem = enum_smem_bytes(m, G_real);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0, bps = 0;
+  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return (int)e;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&bps, fn, ENUM_THREADS,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  if (bps < 1) return (int)cudaErrorInvalidConfiguration;
+  out->grid = grid ? grid : bps * sms;
+  out->threads = ENUM_THREADS;
+  out->width = ENUM_WIDTH;
+  out->M = enum_bucket(m);
+  out->blocks_per_sm = bps;
+  out->sms = sms;
+  out->smem = smem;
+  out->walkers = out->grid * (ENUM_THREADS / ENUM_WIDTH);
+  return 0;
+}
+
+extern "C" int enum_chunk_launch(const EnumParams *hp, int grid,
                                  void *stream) {
-  const EnumParams P = *hp;
-  if (P.m < 2 || P.m > ENUM_MAXM || threads < 1 || threads > 64 ||
-      P.B % threads != 0 || P.G < 1)
+  EnumParams P = *hp;
+  if (P.G < 1 || P.G_real < 1 || P.G_real > P.G || P.R < 1 || P.nfixp < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(P.m * (P.m + 1) + 2 * P.m) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        enum_chunk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const int blocks = P.G * (P.B / threads);
-  enum_chunk_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(P);
+  EnumGeometry geo;
+  const int e = enum_chunk_geometry(P.m, P.G_real, grid, &geo);
+  if (e != 0) return e;
+  if (P.walkers != geo.walkers) return (int)cudaErrorInvalidValue;
+  void *args[] = {&P};
+  const cudaError_t le = cudaLaunchKernel(
+      (const void *)enum_instance(P.m, P.G_real), dim3(geo.grid),
+      dim3(geo.threads), args, (size_t)geo.smem, (cudaStream_t)stream);
+  if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();
 }
 

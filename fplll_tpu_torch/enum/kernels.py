@@ -19,8 +19,17 @@ tensors it runs the plain PyTorch version, a vectorized port of the
 lockstep step of `tpu._make_step`/`_enum_run` (f32 primal SVP/CVP, count
 and search mode). Nothing on the card's path calls the plain version.
 
+Geometry: the kernel's walkers are groups of W threads (the source's
+ENUM_WIDTH, a compile-time constant) on a persistent grid that the
+launcher sizes from the card's occupancy (`grid=0`), so the card sets the
+number of walkers. ``batch`` is no longer a lane count on the card: it
+sizes the root queue (DeviceEnumerator's target_root_factor x batch) and
+is the plain version's lane count. The per-walker outputs hold one slot
+per (problem, walker), sized from the geometry the launcher reports.
+
 Counts: ``LAUNCHES`` counts kernel launches per wrapper and nothing
-else, ``PLAIN_RUNS`` the wrappers' runs of the plain version; node
+else, ``PLAIN_RUNS`` the wrappers' runs of the plain version, ``GRIDS``
+the launch geometries (grid, blocks per SM, SMs) per wrapper; node
 counters are int64 (uint64 in the kernel), never f32.
 """
 
@@ -30,30 +39,33 @@ import ctypes
 import os
 import shutil
 import subprocess
-from typing import Dict, Optional
+from typing import Dict, Optional, Set, Tuple
 
 from ..torchsetup import torch
 
 __all__ = ["enum_run", "enum_run_grouped", "enum_run_plain",
            "enum_run_grouped_plain", "build_kernel", "LAUNCHES", "PLAIN_RUNS",
-           "reset_launch_counts", "MAX_LEVELS"]
+           "reset_launch_counts", "MAX_LEVELS", "GRIDS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PKG, "csrc", "enum_chunk.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 MAX_LEVELS = 128          # ENUM_MAXM of the CUDA source
-_K_TOP = 128              # lanes kept by the finalize (tpu._enum_run)
-_THREADS = 64             # CUDA threads (lanes) per block
+_K_TOP = 128              # walkers kept by the finalize (tpu._enum_run)
 
 LAUNCHES: Dict[str, int] = {"single": 0, "grouped": 0}
 # runs of the plain version through the wrappers (CPU tensors)
 PLAIN_RUNS: Dict[str, int] = {"single": 0, "grouped": 0}
+# (grid, blocks per SM, SMs) of each launch geometry used, per wrapper
+GRIDS: Dict[str, Set[Tuple[int, int, int]]] = {"single": set(),
+                                               "grouped": set()}
 
 
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         PLAIN_RUNS[key] = 0
+        GRIDS[key].clear()
 
 
 # ---------------------------------------------------------------------------
@@ -65,9 +77,19 @@ class _EnumParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x", "roots_pd",
         "A0", "m_real", "cursor", "bound", "bdist", "bdev", "bri", "nodes",
-        "sols", "steps", "aborted")] + [("max_steps", ctypes.c_longlong)] + \
+        "sols", "steps", "root_steps", "aborted")] + \
+        [("max_steps", ctypes.c_longlong)] + \
         [(name, ctypes.c_int) for name in (
-            "G", "G_real", "m", "nfixp", "R", "B", "is_svp", "count_mode")]
+            "G", "G_real", "m", "nfixp", "R", "walkers", "is_svp",
+            "count_mode")]
+
+
+class _EnumGeometry(ctypes.Structure):
+    """Mirror of EnumGeometry in csrc/enum_chunk.cu."""
+
+    _fields_ = [(name, ctypes.c_int) for name in (
+        "grid", "threads", "width", "M", "blocks_per_sm", "sms", "smem",
+        "walkers")]
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -85,13 +107,19 @@ def _nvcc() -> str:
 
 def build_kernel() -> ctypes.CDLL:
     """Compile csrc/enum_chunk.cu for sm_90a (once per source change) and
-    load it. Raises on a missing toolkit or a failed build."""
+    load it; BUILD_LOG holds the compiler's output (`-Xptxas -v`), kept
+    beside the library for later processes. Raises on a missing toolkit
+    or a failed build."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
     so = os.path.join(BUILD_DIR, "libenum_chunk.so")
-    if not (os.path.exists(so) and
-            os.path.getmtime(so) >= os.path.getmtime(KERNEL_SOURCE)):
+    log = so[:-len(".so")] + ".log"
+    if os.path.exists(so) and os.path.exists(log) and \
+            os.path.getmtime(so) >= os.path.getmtime(KERNEL_SOURCE):
+        with open(log) as f:
+            BUILD_LOG = f.read()
+    else:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
         cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
@@ -103,8 +131,13 @@ def build_kernel() -> ctypes.CDLL:
         if res.returncode != 0:
             raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n"
                                f"{BUILD_LOG[-4000:]}")
+        with open(log, "w") as f:
+            f.write(BUILD_LOG)
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
+    lib.enum_chunk_geometry.restype = ctypes.c_int
+    lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.POINTER(_EnumGeometry)]
     lib.enum_chunk_launch.restype = ctypes.c_int
     lib.enum_chunk_launch.argtypes = [ctypes.POINTER(_EnumParams),
                                       ctypes.c_int, ctypes.c_void_p]
@@ -123,10 +156,11 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 
 def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
-             *, G_real: int, batch: int, is_svp: bool, count_mode: bool,
+             *, G_real: int, walkers: int, is_svp: bool, count_mode: bool,
              max_steps: int):
-    """Check the stacked inputs of G problems, allocate the outputs on
-    their device and fill the kernel's parameter struct."""
+    """Check the stacked inputs of G problems, allocate the outputs (one
+    slot per problem and walker) on their device and fill the kernel's
+    parameter struct."""
     G, m, _ = mut.shape
     R, nfixp = roots_x.shape[1], roots_x.shape[2]
     dev = mut.device
@@ -144,16 +178,19 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
     mr = m_real.cpu()
     if int(mr.min()) < 2 or int(mr.max()) > m:
         raise ValueError("m_real must lie in [2, m]")
-    GB = G * batch
+    if not 1 <= G_real <= G or walkers < 1:
+        raise ValueError(f"G_real {G_real} of G {G}, {walkers} walkers")
+    GW = G * walkers
     out = {
         "cursor": torch.zeros(G, dtype=i32, device=dev),
         "bound": torch.full((1,), float("inf"), dtype=f32, device=dev),
-        "bdist": torch.empty(GB, dtype=f32, device=dev),
-        "bdev": torch.zeros((GB, m), dtype=f32, device=dev),
-        "bri": torch.empty(GB, dtype=i32, device=dev),
+        "bdist": torch.full((GW,), float("inf"), dtype=f32, device=dev),
+        "bdev": torch.zeros((GW, m), dtype=f32, device=dev),
+        "bri": torch.zeros(GW, dtype=i32, device=dev),
         "nodes": torch.zeros((G, m), dtype=torch.int64, device=dev),
         "sols": torch.zeros(G, dtype=torch.int64, device=dev),
         "steps": torch.zeros(1, dtype=torch.int64, device=dev),
+        "root_steps": torch.zeros(1, dtype=torch.int64, device=dev),
         "aborted": torch.zeros(1, dtype=i32, device=dev),
     }
     p = _EnumParams()
@@ -163,45 +200,59 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
                     ("A0", A0), ("m_real", m_real)):
         setattr(p, name, t.data_ptr())
     for name in ("cursor", "bound", "bdist", "bdev", "bri", "nodes", "sols",
-                 "steps", "aborted"):
+                 "steps", "root_steps", "aborted"):
         setattr(p, name, out[name].data_ptr())
     p.max_steps = int(max_steps)
-    p.G, p.G_real, p.m, p.nfixp, p.R, p.B = G, G_real, m, nfixp, R, batch
+    p.G, p.G_real, p.m, p.nfixp, p.R = G, G_real, m, nfixp, R
+    p.walkers = walkers
     p.is_svp, p.count_mode = int(is_svp), int(count_mode)
     return p, out
 
 
-def _kernel_run(*args, **kw) -> dict:
-    """One launch over G stacked problems on the current CUDA stream;
-    returns the raw per-lane and per-problem outputs (on the card)."""
-    p, out = _prepare(*args, **kw)
-    lib = build_kernel()
-    stream = torch.cuda.current_stream(args[0].device).cuda_stream
-    rc = lib.enum_chunk_launch(ctypes.byref(p), _THREADS, stream)
+def _raise(lib, rc: int, what: str) -> None:
     if rc != 0:
-        raise RuntimeError("enum_chunk launch failed: " +
+        raise RuntimeError(f"enum_chunk {what} failed: " +
                            lib.enum_chunk_error_string(rc).decode())
+
+
+def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
+    """One launch over G stacked problems on the current CUDA stream. The
+    launcher reports the geometry for (m, G_real, grid): grid 0 asks for
+    blocks per SM times SMs (the persistent grid); it also gives threads
+    per block, the walker width W, the height bucket M, blocks per SM,
+    SMs, dynamic shared memory and walkers (grid * threads / W), which
+    size the outputs. Returns the raw
+    per-walker and per-problem outputs (on the card) and the geometry."""
+    dev = args[0].device
+    lib = build_kernel()
+    g = _EnumGeometry()
+    with torch.cuda.device(dev):
+        _raise(lib, lib.enum_chunk_geometry(args[0].shape[-1], G_real,
+                                            grid, ctypes.byref(g)),
+               "geometry")
+        geo = {name: getattr(g, name) for name, _ in _EnumGeometry._fields_}
+        p, out = _prepare(*args, G_real=G_real, walkers=geo["walkers"], **kw)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        _raise(lib, lib.enum_chunk_launch(ctypes.byref(p), geo["grid"],
+                                          stream), "launch")
+    out["geometry"] = geo
     return out
-
-
-def _lanes(batch: int) -> int:
-    """Lanes of a launch: the batch rounded up to whole blocks."""
-    return -(-int(batch) // _THREADS) * _THREADS
 
 
 def _raise_if_aborted(out: dict, max_steps: int) -> None:
     if int(out["aborted"].item()):
-        raise RuntimeError(f"enum_chunk: a lane walked more than {max_steps} "
-                           "nodes; raise max_steps")
+        raise RuntimeError(f"enum_chunk: a walker walked more than "
+                           f"{max_steps} nodes; raise max_steps")
 
 
 def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
-                     batch: int, max_steps: int) -> dict:
-    """The K best lanes and the problem's totals (the top-K finalize the
-    JAX package ran as XLA after its Pallas call)."""
+                     walkers: int, max_steps: int) -> dict:
+    """The K = min(walkers, 128) best walkers and the problem's totals
+    (the top-K finalize the JAX package ran as XLA after its Pallas
+    call)."""
     _raise_if_aborted(out, max_steps)
     R, nfix = roots_x.shape
-    K = min(batch, _K_TOP)
+    K = min(walkers, _K_TOP)
     negd, idx = torch.topk(-out["bdist"], K)
     bound = torch.clamp(out["bound"][0], max=float(A0))
     return {
@@ -213,18 +264,20 @@ def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
         "A": float(A0) if count_mode else bound,
         "cursor": torch.clamp(out["cursor"][0], max=R),
         "steps": out["steps"][0],
+        "root_steps": out["root_steps"][0],
+        "geometry": out.get("geometry"),
     }
 
 
-def _finalize_grouped(out: dict, roots_x, A0, *, batch: int,
+def _finalize_grouped(out: dict, roots_x, A0, *, walkers: int,
                       max_steps: int) -> dict:
-    """Each problem's best lane, unpacked with its root."""
+    """Each problem's best walker, unpacked with its root."""
     _raise_if_aborted(out, max_steps)
     G = roots_x.shape[0]
     ar = torch.arange(G, device=roots_x.device)
-    bd = out["bdist"].view(G, batch)
+    bd = out["bdist"].view(G, walkers)
     lane = torch.argmin(bd, dim=1)
-    cols = ar * batch + lane
+    cols = ar * walkers + lane
     return {
         "dist": bd[ar, lane],
         "dev": out["bdev"][cols],
@@ -233,6 +286,8 @@ def _finalize_grouped(out: dict, roots_x, A0, *, batch: int,
         "A": torch.clamp(A0, max=out["bound"][0]),
         "bound": out["bound"][0],
         "steps": out["steps"][0],
+        "root_steps": out["root_steps"][0],
+        "geometry": out.get("geometry"),
     }
 
 
@@ -242,7 +297,7 @@ def _finalize_grouped(out: dict, roots_x, A0, *, batch: int,
 def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
              *, m: int, is_svp: bool, count_mode: bool,
              max_steps: int = 1 << 30, batch: int = 1024,
-             m_real: Optional[int] = None) -> dict:
+             m_real: Optional[int] = None, grid: int = 0) -> dict:
     """Enumerate one problem (the `_enum_run_pallas` contract, f32).
 
     mut (m, m) is the transposed mu (mut = mu^T); rdiag/prune/cp0
@@ -253,7 +308,14 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
     launches the kernel, CPU runs the plain version. Returns nodes (m,)
     int64, best_dist (K,), best_dev (K, m), best_root (K, nfix),
     sol_count, A, cursor and steps (the lockstep steps of the plain
-    version; the longest lane walk of the kernel)."""
+    version; the longest walker walk of the kernel, which also returns
+    root_steps, the longest walk under one root, and its geometry).
+
+    `batch` is the plain version's lane count (the caller also sized the
+    root queue from it); on the card the launch geometry sets the
+    walkers: `grid` blocks (0: the persistent grid from occupancy) of
+    walkers ENUM_WIDTH threads wide. K is min(batch, 128) on the CPU and
+    min(walkers, 128) on the card."""
     dev = mut.device
     if dev.type == "cpu":
         PLAIN_RUNS["single"] += 1
@@ -263,23 +325,25 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
                                batch=batch)
     if dev.type != "cuda":
         raise ValueError(f"enum_run: unsupported device {dev}")
-    batch = _lanes(batch)
     mr = m if m_real is None else int(m_real)
     out = _kernel_run(
         mut[None], rdiag[None], prune[None], mut_fix[None], cp0[None],
         roots_x[None], roots_pd[None],
         torch.full((1,), float(A0), dtype=torch.float32, device=dev),
         torch.full((1,), mr, dtype=torch.int32, device=dev),
-        G_real=1, batch=batch, is_svp=is_svp, count_mode=count_mode,
-        max_steps=max_steps)
+        G_real=1, grid=grid, is_svp=is_svp,
+        count_mode=count_mode, max_steps=max_steps)
     LAUNCHES["single"] += 1
+    geo = out["geometry"]
+    GRIDS["single"].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
     return _finalize_single(out, roots_x, A0, count_mode=count_mode,
-                            batch=batch, max_steps=max_steps)
+                            walkers=geo["walkers"], max_steps=max_steps)
 
 
 def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                      m_real, *, G_real: int, batch: int = 1024,
-                     is_svp: bool = True, max_steps: int = 1 << 30) -> dict:
+                     is_svp: bool = True, max_steps: int = 1 << 30,
+                     grid: int = 0) -> dict:
     """Enumerate G problems in one launch with one shared shrinking bound
     (the `_enum_run_pallas_grouped` contract, search mode).
 
@@ -290,9 +354,12 @@ def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     leading G axis, with m_real (G,) int32. Returns dist (G,), dev (G, m),
     root (G, nfixp), nodes (m,) int64, A (G,), bound (the shared bound
     after the launch: the least distance a real problem found, inf if
-    none) and steps. On the CPU the
-    problems run one after another, carrying the shared bound the way the
-    TPU grid carried it across cells."""
+    none), steps and, on the card, root_steps and the geometry. On the CPU
+    the problems run one after another, carrying the shared bound the way
+    the TPU grid carried it across cells, over `batch` lanes each; on the
+    card `grid` sets the walkers as in :func:`enum_run`, and a
+    walker whose problem's queue has drained moves on to another real
+    problem (padding problems are never scheduled)."""
     dev = mut.device
     if dev.type == "cpu":
         PLAIN_RUNS["grouped"] += 1
@@ -302,12 +369,13 @@ def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                                        max_steps=max_steps)
     if dev.type != "cuda":
         raise ValueError(f"enum_run_grouped: unsupported device {dev}")
-    batch = _lanes(batch)
     out = _kernel_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
-                      A0, m_real, G_real=G_real, batch=batch, is_svp=is_svp,
-                      count_mode=False, max_steps=max_steps)
+                      A0, m_real, G_real=G_real, grid=grid,
+                      is_svp=is_svp, count_mode=False, max_steps=max_steps)
     LAUNCHES["grouped"] += 1
-    return _finalize_grouped(out, roots_x, A0, batch=batch,
+    geo = out["geometry"]
+    GRIDS["grouped"].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
+    return _finalize_grouped(out, roots_x, A0, walkers=geo["walkers"],
                              max_steps=max_steps)
 
 

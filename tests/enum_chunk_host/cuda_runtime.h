@@ -1,8 +1,8 @@
 /* Host stand-in for the CUDA runtime header: just enough of the device
-   language (qualifiers, thread indices, atomics, round-to-nearest
-   intrinsics) for a host C++ compiler to build the device code of
-   fplll_tpu_torch/csrc/enum_chunk.cu. emulate.cpp runs it with one host
-   thread per CUDA thread. Test support only. */
+   language (qualifiers, thread indices, atomics, warp shuffles,
+   round-to-nearest intrinsics) for a host C++ compiler to build the
+   device code of fplll_tpu_torch/csrc/enum_chunk.cu. emulate.cpp runs it
+   with one cooperative fiber per CUDA thread. Test support only. */
 #pragma once
 
 #include <cmath>
@@ -11,16 +11,25 @@
 struct dim3 {
   unsigned x = 0, y = 0, z = 0;
 };
-extern thread_local dim3 threadIdx, blockIdx;
-extern dim3 blockDim;
+extern dim3 threadIdx, blockIdx, blockDim;
 
 #define __global__
 #define __device__
+#define __host__
 #define __forceinline__ inline
-#define __shared__
 #define __launch_bounds__(n)
 
 void __syncthreads();
+
+/* warp-synchronous exchange among the `width` threads of the caller's
+   segment; every thread named in `mask` must reach the same call, which
+   the emulation checks by the call's source line */
+float emu_shfl(unsigned mask, float v, int src, int width, int line);
+int emu_shfl(unsigned mask, int v, int src, int width, int line);
+#define __shfl_sync(mask, v, src, width) \
+  emu_shfl(mask, v, src, width, __LINE__)
+
+inline int min(int a, int b) { return a < b ? a : b; }
 
 /* compiled with -ffp-contract=off: every operation rounds on its own */
 inline float __fadd_rn(float a, float b) { return a + b; }
@@ -40,22 +49,25 @@ inline int __float_as_int(float f) {
   return i;
 }
 
-#define EMU_SC __ATOMIC_SEQ_CST
+/* all fibers of a launch share one OS thread, and switch only inside
+   __syncthreads and __shfl_sync: a read-modify-write cannot interleave */
 template <typename T> inline T atomicAdd(T *p, T v) {
-  return __atomic_fetch_add(p, v, EMU_SC);
+  const T old = *p;
+  *p = old + v;
+  return old;
 }
 template <typename T> inline T atomicMax(T *p, T v) {
-  T old = __atomic_load_n(p, EMU_SC);
-  while (old < v &&
-         !__atomic_compare_exchange_n(p, &old, v, false, EMU_SC, EMU_SC)) {
-  }
+  const T old = *p;
+  if (old < v) *p = v;
   return old;
 }
 template <typename T> inline T atomicMin(T *p, T v) {
-  T old = __atomic_load_n(p, EMU_SC);
-  while (old > v &&
-         !__atomic_compare_exchange_n(p, &old, v, false, EMU_SC, EMU_SC)) {
-  }
+  const T old = *p;
+  if (v < old) *p = v;
   return old;
 }
-inline int atomicExch(int *p, int v) { return __atomic_exchange_n(p, v, EMU_SC); }
+inline int atomicExch(int *p, int v) {
+  const int old = *p;
+  *p = v;
+  return old;
+}

@@ -152,6 +152,26 @@ def test_grouped_kernel_matches_plain(card):
     assert math.isinf(float(k["dist"][3]))
 
 
+def test_counts_identical_at_any_grid(card):
+    """One count-mode problem on the persistent grid (blocks per SM times
+    SMs) and on a grid of one block: identical per-level node counts and
+    solution counts (tests/test_torch_enum_kernel.py holds the emulated
+    kernel to this at every walker width the source can be built with)."""
+    pack = packed(*window(40, 3), card)
+    mr = pack["m_real"]
+    kw = dict(is_svp=True, count_mode=True, batch=1024, max_steps=1 << 30)
+    full = kernels.enum_run(**pack, **kw)
+    one = kernels.enum_run(**pack, **kw, grid=1)
+    geo = full["geometry"]
+    assert geo["width"] == 32 and geo["grid"] == \
+        geo["blocks_per_sm"] * geo["sms"]
+    assert one["geometry"]["grid"] == 1
+    np.testing.assert_array_equal(full["nodes"].cpu().numpy()[:mr],
+                                  one["nodes"].cpu().numpy()[:mr])
+    assert int(full["sol_count"]) == int(one["sol_count"])
+    assert int(full["root_steps"]) == int(one["root_steps"])
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     pack = packed(*window(30, 1), card)
     kw = dict(is_svp=True, count_mode=True, batch=1024, max_steps=1 << 30)

@@ -260,7 +260,7 @@ def test_wrapper_rejects_mismatched_inputs():
     t["A0"] = torch.full((1,), float(A))
     t["m_real"] = torch.full((1,), prob["m_real"], dtype=torch.int32)
     args = [t[k][None] for k in FIELDS] + [t["A0"], t["m_real"]]
-    kw = dict(G_real=1, batch=128, is_svp=True, count_mode=True,
+    kw = dict(G_real=1, walkers=128, is_svp=True, count_mode=True,
               max_steps=1 << 20)
     kernels._prepare(*args, **kw)
     bad = list(args)
@@ -276,46 +276,91 @@ def test_wrapper_rejects_mismatched_inputs():
 # ---------------------------------------------------------------------------
 # the CUDA kernel's device code, compiled for the host
 # ---------------------------------------------------------------------------
+WIDTHS = (8, 16, 32)       # the walker widths the source can be built with
+EMU_THREADS = 64           # threads per emulated block
+EMU_SRC = os.path.join(ROOT, "tests", "enum_chunk_host", "emulate.cpp")
+EMU_FLAGS = ["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-shared",
+             "-fPIC", "-I", os.path.dirname(EMU_SRC)]
+
+
 @pytest.fixture(scope="module")
-def host_kernel(tmp_path_factory):
-    """tests/enum_chunk_host/emulate.cpp builds csrc/enum_chunk.cu's device
-    code with the host compiler (one thread per CUDA thread, blocks in
-    turn, no FMA contraction) so its walk can be checked without a card."""
-    src = os.path.join(ROOT, "tests", "enum_chunk_host", "emulate.cpp")
-    so = str(tmp_path_factory.mktemp("enum_chunk_host") / "libemu.so")
-    res = subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off",
-                          "-pthread", "-shared", "-fPIC",
-                          "-I", os.path.dirname(src), "-o", so, src],
-                         capture_output=True, text=True, timeout=300)
-    assert res.returncode == 0, res.stderr[-4000:]
-    lib = ctypes.CDLL(so)
-    lib.enum_chunk_emulate.restype = ctypes.c_int
-    lib.enum_chunk_emulate.argtypes = [ctypes.POINTER(kernels._EnumParams),
-                                       ctypes.c_int]
-    return lib
+def host_build(tmp_path_factory):
+    """build(width) compiles tests/enum_chunk_host/emulate.cpp, and with it
+    csrc/enum_chunk.cu's device code, with the host compiler at that
+    walker width (-DENUM_WIDTH; None: the source's own), once per width:
+    one fiber per CUDA thread, all blocks resident, warp-synchronous
+    shuffles, no FMA contraction, so the walk can be checked without a
+    card."""
+    libs = {}
+    out = tmp_path_factory.mktemp("enum_chunk_host")
+
+    def build(width=None):
+        if width not in libs:
+            so = str(out / f"libemu_{width or 'default'}.so")
+            flags = [f"-DENUM_WIDTH={width}"] if width else []
+            res = subprocess.run(EMU_FLAGS + flags + ["-o", so, EMU_SRC],
+                                 capture_output=True, text=True, timeout=300)
+            assert res.returncode == 0, res.stderr[-4000:]
+            lib = ctypes.CDLL(so)
+            lib.enum_chunk_emulate.restype = ctypes.c_int
+            lib.enum_chunk_emulate.argtypes = [
+                ctypes.POINTER(kernels._EnumParams), ctypes.c_int,
+                ctypes.c_int]
+            lib.enum_chunk_emulated_width.restype = ctypes.c_int
+            libs[width] = lib
+        return libs[width]
+    return build
 
 
-def run_host_kernel(lib, t, A0, m_real, *, count_mode, batch=128,
-                    G_real=1):
-    """One emulated launch over stacked problems (leading G axis)."""
+@pytest.fixture(scope="module")
+def host_kernel(host_build):
+    """The emulation at the source's own walker width, the card's."""
+    return host_build()
+
+
+def run_host_kernel(lib, t, A0, m_real, *, count_mode, G_real=1, grid=2):
+    """One emulated launch over stacked problems (leading G axis) on
+    `grid` blocks of EMU_THREADS threads, walkers as wide as `lib` was
+    built."""
+    walkers = grid * EMU_THREADS // lib.enum_chunk_emulated_width()
     p, out = kernels._prepare(
         t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
-        t["rpd"], A0, m_real, G_real=G_real, batch=batch, is_svp=True,
+        t["rpd"], A0, m_real, G_real=G_real, walkers=walkers, is_svp=True,
         count_mode=count_mode, max_steps=1 << 40)
-    assert lib.enum_chunk_emulate(ctypes.byref(p), 64) == 0
+    assert lib.enum_chunk_emulate(ctypes.byref(p), grid, EMU_THREADS) == 0
+    out["walkers"] = walkers
     return out
+
+
+def small_problem(d, pruned, m=None):
+    """The d-dimensional window of tests/test_pallas_parity.py with its
+    roots at root factor 1, and its stacked (G = 1) tensors; `m` pads the
+    height to another bucket."""
+    prune = linear_pruning(d, d // 2) if pruned else None
+    mut, rdiag, prune_v, A = build(d, 1, prune)
+    prob = pad_problem(mut, rdiag, prune_v, A, root_factor=1)
+    if m is not None:
+        m0 = prob["m"]
+        for k, fill in (("mut", 0.0), ("rdiag", 1e30), ("prune", 1.0),
+                        ("mut_fix", 0.0), ("cp0", 0.0)):
+            a = prob[k]
+            shape = (m, m) if k == "mut" else (m,) + a.shape[1:]
+            b = np.full(shape, fill)
+            b[tuple(slice(0, n) for n in a.shape)] = a
+            prob[k] = b
+        prob["m"] = m
+        assert m > m0
+    t = {k: v[None] for k, v in tensors(prob).items()}
+    return prob, t
 
 
 @pytest.mark.parametrize("d,pruned", [(24, False), (30, False), (30, True)])
 def test_host_compiled_kernel_matches_plain(host_kernel, d, pruned):
     """Count mode: per-level node counts equal the plain version's exactly
     (the kernel repeats the stepwise walk's f32 arithmetic). Search mode:
-    the same best distance; lanes share the bound asynchronously, so node
-    counts may differ slightly."""
-    prune = linear_pruning(d, d // 2) if pruned else None
-    mut, rdiag, prune_v, A = build(d, 1, prune)
-    prob = pad_problem(mut, rdiag, prune_v, A, root_factor=1)
-    t = {k: v[None] for k, v in tensors(prob).items()}
+    the same best distance; walkers share the bound asynchronously, so
+    node counts may differ slightly."""
+    prob, t = small_problem(d, pruned)
     A0 = float(np.float32(prob["A"]))
     mr = torch.full((1,), prob["m_real"], dtype=torch.int32)
     for count_mode in (True, False):
@@ -323,7 +368,8 @@ def test_host_compiled_kernel_matches_plain(host_kernel, d, pruned):
         out = run_host_kernel(host_kernel, t, torch.full((1,), A0), mr,
                               count_mode=count_mode)
         res = kernels._finalize_single(out, t["rx"][0], A0,
-                                       count_mode=count_mode, batch=128,
+                                       count_mode=count_mode,
+                                       walkers=out["walkers"],
                                        max_steps=1 << 40)
         assert int(res["sol_count"]) == ref["sols"]
         assert_best(float(res["best_dist"][0]), ref["best"], 1e-6)
@@ -335,7 +381,119 @@ def test_host_compiled_kernel_matches_plain(host_kernel, d, pruned):
             assert abs(int(kn.sum()) - int(pn.sum())) <= 0.01 * pn.sum()
 
 
-def test_host_compiled_grouped_kernel_matches_plain(host_kernel):
+_PLAIN_COUNTS = {}
+
+
+def plain_counts(d, pruned):
+    """(per-level nodes below m_real, solution count) of the plain
+    version in count mode, once per problem."""
+    if (d, pruned) not in _PLAIN_COUNTS:
+        prob, _ = small_problem(d, pruned)
+        ref = run_port(prob, True)
+        _PLAIN_COUNTS[d, pruned] = (ref["nodes"][:prob["m_real"]],
+                                    ref["sols"])
+    return _PLAIN_COUNTS[d, pruned]
+
+
+def emulated_counts(lib, prob, t, *, G_real=1, grid):
+    A0 = torch.full((t["mut"].shape[0],), float(np.float32(prob["A"])))
+    mr = torch.full((t["mut"].shape[0],), prob["m_real"], dtype=torch.int32)
+    out = run_host_kernel(lib, t, A0, mr, count_mode=True, G_real=G_real,
+                          grid=grid)
+    assert int(out["aborted"]) == 0
+    assert 0 < int(out["root_steps"]) <= int(out["steps"])
+    return out["nodes"].numpy()[:, :prob["m_real"]], out["sols"].numpy()
+
+
+@pytest.mark.parametrize("width", WIDTHS)
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("d,pruned", [(24, False), (24, True), (30, False),
+                                      (30, True)])
+def test_host_compiled_counts_exact_at_any_grid_and_width(
+        host_build, d, pruned, grid, width):
+    """Count mode at every walker width the source can be built with and
+    at a grid of 1 and of 3 blocks: per-level node counts and the solution
+    count equal the plain version's exactly, because a root's walk is the
+    same f32 arithmetic whichever walker takes it."""
+    pn, ps = plain_counts(d, pruned)
+    prob, t = small_problem(d, pruned)
+    kn, ks = emulated_counts(host_build(width), prob, t, grid=grid)
+    np.testing.assert_array_equal(kn[0], pn)
+    assert int(ks[0]) == ps
+
+
+@pytest.mark.parametrize("m", [40, 128])
+def test_host_compiled_counts_exact_in_every_height_bucket(host_build, m):
+    """The d = 30 tree padded to the M = 64 and M = 128 buckets (levels
+    above m_real are bucket padding, which the walk never enters): the
+    counts of the M = 32 run."""
+    pn, ps = plain_counts(30, False)
+    prob, t = small_problem(30, False, m=m)
+    for width in WIDTHS:
+        kn, ks = emulated_counts(host_build(width), prob, t, grid=2)
+        np.testing.assert_array_equal(kn[0], pn)
+        assert int(ks[0]) == ps
+
+
+def test_host_compiled_counts_exact_from_global_memory(host_build):
+    """Four real problems of height 128 do not fit in shared memory
+    (4 x 67 KB), so the kernel reads mu, rdiag and prune from global
+    memory; walkers move from problem to problem as queues drain, and
+    each problem's counts are the single problem's."""
+    pn, ps = plain_counts(30, True)
+    prob, t = small_problem(30, True, m=128)
+    t4 = {k: v.expand(4, *v.shape[1:]).contiguous() for k, v in t.items()}
+    kn, ks = emulated_counts(host_build(16), prob, t4, G_real=4, grid=1)
+    for g in range(4):
+        np.testing.assert_array_equal(kn[g], pn)
+        assert int(ks[g]) == ps
+
+
+def test_host_compiled_kernel_stops_at_the_step_cap(host_kernel):
+    """A walker past max_steps (checked every 32 iterations) sets the
+    abort flag, and the finalize raises instead of returning a partial
+    count."""
+    prob, t = small_problem(30, False)
+    A0 = float(np.float32(prob["A"]))
+    a0 = torch.full((1,), A0)       # held: the struct keeps only pointers
+    mr = torch.full((1,), prob["m_real"], dtype=torch.int32)
+    p, out = kernels._prepare(
+        t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
+        t["rpd"], a0, mr, G_real=1, walkers=2, is_svp=True,
+        count_mode=True, max_steps=64)
+    assert host_kernel.enum_chunk_emulated_width() == 32
+    assert host_kernel.enum_chunk_emulate(ctypes.byref(p), 1,
+                                          EMU_THREADS) == 0
+    assert int(out["aborted"]) == 1 and int(out["steps"]) == 96
+    with pytest.raises(RuntimeError, match="max_steps"):
+        kernels._finalize_single(out, t["rx"][0], A0, count_mode=True,
+                                 walkers=2, max_steps=64)
+
+
+def test_host_emulation_refuses_a_geometry_the_source_lacks(host_kernel):
+    """The source builds only at walker widths 8, 16 and 32 (a static
+    assertion), and a launch whose walker count, grid or block does not
+    match the geometry is refused."""
+    for width in (4, 64):
+        res = subprocess.run(EMU_FLAGS + [
+            "-fsyntax-only", f"-DENUM_WIDTH={width}", EMU_SRC],
+            capture_output=True, text=True, timeout=300)
+        assert res.returncode != 0
+        assert "walker width: 8, 16 or 32 threads" in res.stderr
+    prob, t = small_problem(24, False)
+    A0 = torch.full((1,), float(np.float32(prob["A"])))
+    mr = torch.full((1,), prob["m_real"], dtype=torch.int32)
+    for walkers, grid, threads in ((1, 1, EMU_THREADS), (2, 0, EMU_THREADS),
+                                   (1, 1, 48), (64, 1, 2048)):
+        p, _ = kernels._prepare(
+            t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"],
+            t["rx"], t["rpd"], A0, mr, G_real=1, walkers=walkers,
+            is_svp=True, count_mode=True, max_steps=1 << 40)
+        assert host_kernel.enum_chunk_emulate(ctypes.byref(p), grid,
+                                              threads) == 1
+
+
+def test_host_compiled_grouped_kernel_matches_plain(host_build):
     """Grouped form: four problems (three bases of one lattice and one
     padding problem) in one launch share the bound; the union best equals
     the plain grouped version's, and padding problems never write it."""
@@ -351,9 +509,10 @@ def test_host_compiled_grouped_kernel_matches_plain(host_kernel):
     tt = {"mut": t["mut"], "rdiag": t["rdiag"], "prune": t["prune"],
           "mut_fix": t["mut_fix"], "cp0": t["cp0"], "rx": t["roots_x"],
           "rpd": t["roots_pd"]}
-    out = run_host_kernel(host_kernel, tt, t["A0"], t["m_real"],
-                          count_mode=False, G_real=3)
-    res = kernels._finalize_grouped(out, t["roots_x"], t["A0"], batch=128,
+    out = run_host_kernel(host_build(16), tt, t["A0"], t["m_real"],
+                          count_mode=False, G_real=3, grid=3)
+    res = kernels._finalize_grouped(out, t["roots_x"], t["A0"],
+                                    walkers=out["walkers"],
                                     max_steps=1 << 40)
     assert_best(float(res["dist"].min()), float(plain["dist"].min()), 1e-6)
     assert math.isfinite(float(res["dist"].min()))
