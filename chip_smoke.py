@@ -5,7 +5,9 @@
 
 Phases (each one fails the run if it fails):
   1. report the card, build the CUDA kernel (every template instance,
-     `-Xptxas -v` printed, no spills) and the native C cores;
+     `-Xptxas -v` printed, no spills, the six f32 instances of BKZ-2.0 at
+     the registers they had before the element type became a template
+     parameter) and the native C cores;
   2. the kernel against its plain PyTorch version on the card, for each
      launch form (root queue, with the plain version at 1024 and 16384
      lanes, a single root with nfix = 0) in count and search mode, a
@@ -20,7 +22,13 @@ Phases (each one fails the run if it fails):
      persistent grid, blocks per SM times SMs), then the same tour on the
      host C core alone;
   4. one block-60 window through DeviceEnumerator and the native C core,
-     each answer certified by the other implementation.
+     each answer certified by the other implementation;
+  5. proved SVP (d = 56), fast and proved CVP, dual SVP and sub-solutions
+     (d = 50) on BKZ-20-reduced gen_intrel bases through the port's
+     public functions, each against the same call host-only.
+
+Phase 2 also holds the f64, dual and sub-solution forms of the kernel
+against the plain version.
 
 The line before the last is one JSON object with the kernel's numbers;
 the last line is {"ok": true, "device": {...}}. Imports only torch, numpy
@@ -39,6 +47,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_F32_FLOPS = 67e12       # non-tensor f32 peak, H100 SXM data sheet
+H100_F64_FLOPS = 34e12       # non-tensor f64 peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12     # HBM3 rate, H100 SXM data sheet
 CROSSOVER = 2_000_000        # estimated nodes; windows above it go to the card
 # recorded times of the kernel before the walker redesign, one thread
@@ -114,7 +123,7 @@ def packed_problem(mut, rdiag, prune, A, device, nfix0=False):
     else:
         enum.pin_m = 64      # the height of the main path's block-60 windows
         enum.pin_nfix, enum.pin_R = 16, 32768
-        rx, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d),
+        rx, _, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d),
                                           A, d, True)
     pack = enum._pack(mut, rdiag, prune, np.zeros(d), d, rx, rpd, m_real)
     pack["A0"] = A * enum.bound_slack
@@ -122,28 +131,53 @@ def packed_problem(mut, rdiag, prune, A, device, nfix0=False):
 
 
 def op_count(nodes) -> float:
-    """f32 operations the walk needs for these per-level node counts: per
+    """Operations the walk needs for these per-level node counts: per
     counted node at level k, the bound test and zig-zag step (about 20)
     plus the descend/restore update of the k center sums below it (4k)."""
     return float(sum(int(n) * (4 * k + 20) for k, n in enumerate(nodes)))
 
 
-def bound_ms(pack, nodes, slots: int) -> tuple:
-    """Least time for the work: max(bytes / HBM rate, ops / f32 rate).
-    Bytes: each input tensor read once; written once, the `slots` results
-    the function returns (distance, root index and m coordinates each:
-    the K best of one problem, or each problem's best) and the counters
-    (per-level nodes and solutions per problem, the two walk lengths)."""
-    m = pack["mut"].shape[-1]
-    G = pack["mut"].shape[0] if pack["mut"].dim() == 3 else 1
-    nbytes = sum(pack[k].numel() * pack[k].element_size() for k in
-                 ("mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x",
-                  "roots_pd"))
-    nbytes += slots * (m + 2) * 4 + G * (m + 1) * 8 + 2 * 8
+def bound_ms(pack, nodes, slots: int, d: int, m_reals,
+             subsols: bool = False) -> tuple:
+    """Least time for the work: max(bytes / HBM rate, ops / the rate of
+    the tree's element type, outside the tensor cores, which the walk
+    does not use). Bytes: what the walk needs of each real problem (one
+    per entry of `m_reals`, its real height; d - m_real fixed levels),
+    read once, with none of the padding to the kernel's buckets: mu's
+    strict triangle, rdiag, prune and the start centers over the m_real
+    levels, mu against the fixed levels, and the roots inside the start
+    radius (the padding roots lie outside it and stop the walk at the
+    first one): each one's partial distance and the values it feeds the
+    center sums (its coordinates, or under dual its alpha values, with
+    the coordinates read only for the reported results). Written once:
+    the `slots` results the function returns (distance, root index and
+    m_real coordinates each: the K best of one problem, or each problem's
+    best), the counters (per-level nodes and solutions per problem, the
+    two walk lengths) and, with `subsols`, the per-level records
+    (distance, root index and m_real coordinates per level). Returns
+    (ms, what bounds it, the roots inside the start radius per problem)."""
+    import torch
+    elem = pack["mut"].element_size()
+    dual = "roots_a" in pack
+    rpd = pack["roots_pd"].reshape(-1, pack["roots_pd"].shape[-1]).cpu()
+    A0 = torch.as_tensor(pack["A0"]).reshape(-1).cpu()
+    roots = [int((rpd[g] <= A0[g]).sum()) for g in range(len(m_reals))]
+    floats = 0
+    for mr, R in zip(m_reals, roots):
+        nf = d - mr
+        floats += mr * (mr - 1) // 2 + 3 * mr + mr * nf + R * (nf + 1)
+        if dual:
+            floats += min(slots, R) * nf
+    mr = max(m_reals)
+    nbytes = floats * elem + slots * ((mr + 1) * elem + 4) + \
+        sum((m + 1) * 8 for m in m_reals) + 2 * 8
+    if subsols:
+        nbytes += sum(m * ((m + 1) * elem + 4) for m in m_reals)
     t_bytes = nbytes / H100_HBM_BYTES
-    t_ops = op_count(nodes.cpu().tolist()) / H100_F32_FLOPS
+    rate = H100_F64_FLOPS if elem == 8 else H100_F32_FLOPS
+    t_ops = op_count(nodes.cpu().tolist()) / rate
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes > t_ops else "operations")
+            "bytes" if t_bytes > t_ops else "operations", roots)
 
 
 def compare_counts(name, k_out, p_out, m_real):
@@ -211,8 +245,11 @@ SHRINK_SPREAD_SEEDS = tuple(range(5, 14))
 # of phase 4)
 F32_DIST_TOL = 2e-4
 # the grouped check's radius, times the union best: keeps the plain
-# version, which walks the three trials one after another, near 100 s
-GROUPED_RADIUS = 1.03
+# version, which walks the three trials one after another, near a minute
+GROUPED_RADIUS = 1.015
+# the radius of the grouped check's earlier, larger tree; the kernel alone
+# is also timed there, beside the times recorded at it (PERF.md section 6)
+GROUPED_TIMED_RADIUS = 1.03
 
 
 def geometry_fields(out) -> dict:
@@ -243,12 +280,12 @@ def wrapper_ms(fn, reps: int = 3):
     return out, sorted(ts)[reps // 2]
 
 
-def native_ms(mut, rdiag, prune, A, count_mode):
+def native_ms(mut, rdiag, prune, A, count_mode, dual=False):
     """The native C core on the same window: (ms, nodes of the whole
     tree, best distance), the yardstick beside the kernel."""
     from fplll_tpu_torch.native import native_enumerate
     t0 = time.perf_counter()
-    out = native_enumerate(mut, rdiag, prune, None, A, True, False,
+    out = native_enumerate(mut, rdiag, prune, None, A, True, dual,
                            count_mode)
     return (time.perf_counter() - t0) * 1e3, float(out[4].sum()), \
         float(out[1])
@@ -293,8 +330,8 @@ def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                    "best": kb, "counts_exact": exact,
                    **geometry_fields(k_out),
                    "plain_steps": int(p_out["steps"])}
-            rec["bound_ms"], rec["bound_by"] = bound_ms(
-                pack, k_out["nodes"], len(k_out["best_dist"]))
+            rec["bound_ms"], rec["bound_by"], (rec["R_real"],) = bound_ms(
+                pack, k_out["nodes"], len(k_out["best_dist"]), d, [mr])
             if name == TIMED_CASE and count_mode:
                 timing = rec
                 rec["us_per_step"] = k_ms * 1e3 / rec["longest_walker_walk"]
@@ -481,11 +518,14 @@ def grouped_window_problem(device, dim=80, block=60, radius=GROUPED_RADIUS,
                                         True, False, False)[1]) <=
                  best * (1 + 1e-9) for mu, r in zip(muts, rdiags)]
     assert any(certified), "the union best depends on the bound's order"
-    maxds = np.full(trials, best * radius)
-    tensors, m_reals, _ = _pack_grouped(
-        np.stack(muts), np.stack(rdiags), np.stack([prune] * trials), maxds,
-        device, 1024)
+    def pack(r):
+        return _pack_grouped(np.stack(muts), np.stack(rdiags),
+                             np.stack([prune] * trials),
+                             np.full(trials, best * r), device, 1024)
+
+    tensors, m_reals, _ = pack(radius)
     return {"tensors": tensors, "m_reals": [int(v) for v in m_reals],
+            "pack": pack,
             "bases": bases,
             "normexp": exps[0], "union_best_c": best, "radius": best * radius,
             "trial_best_c": [float(f[1]) for f in found],
@@ -540,6 +580,8 @@ def grouped_check(device, dim, block, radius):
     assert abs(exact - c_best) <= 1e-9 * c_best, \
         f"grouped: the kernel's vector {exact} against the C core's {c_best}"
     nodes = float(k_out["nodes"].sum())
+    wide = gp["pack"](GROUPED_TIMED_RADIUS)[0]
+    _, wide_ms = wrapper_ms(lambda: kernels.enum_run_grouped(**wide, **kw))
     rec = {"form": name, "mode": "search",
            "m": m, "m_reals": gp["m_reals"],
            "R": t["roots_pd"].shape[1], "B": 1024,
@@ -551,11 +593,127 @@ def grouped_check(device, dim, block, radius):
            "c_core_trial_best": gp["trial_best_c"],
            "certified_trials": gp["certified"], "exact_norm": exact,
            "shared_bound": float(k_out["bound"]),
+           f"kernel_ms_at_{GROUPED_TIMED_RADIUS}": wide_ms,
            **geometry_fields(k_out),
            "plain_steps": int(p_out["steps"])}
-    rec["bound_ms"], rec["bound_by"] = bound_ms(t, k_out["nodes"], G)
+    rec["bound_ms"], rec["bound_by"], rec["R_real"] = bound_ms(
+        t, k_out["nodes"], G, block, gp["m_reals"])
     log("kernel-check " + json.dumps(rec))
     return rec, err
+
+
+# the forms of the proved SVP/CVP solvers: (form, element type, dual,
+# sub-solutions, dim, seed, modes), each against its plain version at the
+# main path's launch shape (m = 64, nfix = 16, R = 32768). The primal
+# trees are the "queue d40" window (0.22 M nodes in the C core); the dual
+# ones the seed-4 window's dual tree at its longest 1/r_ii (0.22 M nodes
+# too), so each plain run takes seconds. Sub-solutions run in count mode,
+# where the records do not depend on timing.
+EXT_CASES = [("f64", "f64", False, False, 40, 3, BOTH),
+             ("f32-dual", "f32", True, False, 40, 4, BOTH),
+             ("f64-dual", "f64", True, False, 40, 4, BOTH),
+             ("f32-subsols", "f32", False, True, 40, 3, (True,)),
+             ("f64-subsols", "f64", False, True, 40, 3, (True,))]
+
+
+def dual_tree(mut, rdiag, radius=1.0):
+    """The reversed, inverted (mu, r) of the dual recurrence (as the
+    facade transforms a block, enumerate.cpp:98-121) and `radius` times
+    its longest 1/r_ii, the length of a dual basis vector."""
+    import numpy as np
+    mu2 = np.triu(-(mut.T)[::-1, ::-1], 1)
+    r2 = (1.0 / rdiag)[::-1].copy()
+    return mu2, r2, 1.00001 * float(r2.max()) * radius
+
+
+def ext_problem(d, seed, dtype, dual, device):
+    """A window (or its dual tree) packed as DeviceEnumerator packs it in
+    `dtype`, at the main path's launch shape."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.enum.device import DeviceEnumerator
+
+    _, mut, rdiag, prune, A, _ = uniform_window(d, seed, False)
+    if dual:
+        mut, rdiag, A = dual_tree(mut, rdiag)
+    enum = DeviceEnumerator(batch=1024, target_root_factor=16, device=device,
+                            dtype=torch.float64 if dtype == "f64"
+                            else torch.float32)
+    enum.nodes = np.zeros(d, dtype=np.int64)
+    enum.pin_m, enum.pin_nfix, enum.pin_R = 64, 16, 32768
+    rx, ra, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d), A,
+                                          d, True, dual=dual)
+    pack = enum._pack(mut, rdiag, prune, np.zeros(d), d, rx, rpd, m_real,
+                      ra if dual else None)
+    pack["A0"] = A * enum.bound_slack
+    return pack, (mut, rdiag, prune, A)
+
+
+def phase_extended_checks(device, cases=EXT_CASES):
+    """Phase 2, the forms of the proved solvers: each against its plain
+    version on the card with the tolerances of the CPU tests of the host
+    build (tests/test_torch_enum_f64.py): count mode, per-level nodes,
+    the solution count and the sub-solution distances exactly equal; both
+    modes, bit-equal best distances. Returns the records, each with the
+    largest difference of its best distance or a sub-solution distance
+    from the plain version's (max_abs_err)."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.enum import kernels
+
+    sync = torch.cuda.synchronize
+    recs = []
+    for form, dtype, dual, subsols, d, seed, modes in cases:
+        pack, (mut, rdiag, prune, A) = ext_problem(d, seed, dtype, dual,
+                                                   device)
+        assert kernels._form(pack["mut"].dtype, dual, subsols) == form
+        mr = pack["m_real"]
+        plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+        for count_mode in modes:
+            kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
+                      max_steps=1 << 30, dual=dual, findsubsols=subsols)
+            k_out, k_ms = wrapper_ms(lambda: kernels.enum_run(**pack, **kw))
+            p_out, p_s = timed(lambda: kernels.enum_run_plain(
+                **plain_args, **kw), sync)
+            n_ms, n_nodes, _ = native_ms(mut, rdiag, prune, A, count_mode,
+                                         dual)
+            mode = "count" if count_mode else "search"
+            name = f"{form} d{d} {mode}"
+            kb, pb = float(k_out["best_dist"][0]), float(p_out["best_dist"][0])
+            err = abs(kb - pb) if math.isfinite(kb) else 0.0
+            assert kb == pb, f"{name}: best distance {kb} vs {pb}"
+            assert math.isfinite(kb), f"{name}: nothing found"
+            kn = k_out["nodes"].cpu().numpy()[:mr]
+            pn = p_out["nodes"].cpu().numpy()[:mr]
+            if count_mode:
+                assert np.array_equal(kn, pn), f"{name}: counts {kn} {pn}"
+                ks, ps = int(k_out["sol_count"]), int(p_out["sol_count"])
+                assert ks == ps > 0, f"{name}: solution counts {ks} {ps}"
+                if subsols:
+                    a = k_out["subsol_dist"].cpu().numpy()[:mr]
+                    b = p_out["subsol_dist"].cpu().numpy()[:mr]
+                    both = np.isfinite(a) & np.isfinite(b)
+                    err = max(err, float(np.abs(a - b)[both].max(
+                        initial=0.0)))
+                    assert np.array_equal(a, b), f"{name}: records {a} {b}"
+            rec = {"form": form, "mode": mode, "dim": d, "seed": seed,
+                   "m": pack["m"], "m_real": mr,
+                   "nfix": pack["roots_x"].shape[1],
+                   "R": pack["roots_x"].shape[0], "B": 1024,
+                   "kernel_ms": k_ms, "plain_ms": p_s * 1e3,
+                   "nodes": float(kn.sum()),
+                   "nodes_per_s": float(kn.sum()) / (k_ms * 1e-3),
+                   "native_ms": n_ms, "native_nodes": n_nodes, "best": kb,
+                   "max_abs_err": err,
+                   "counts_exact": True if count_mode else None,
+                   **geometry_fields(k_out),
+                   "plain_steps": int(p_out["steps"])}
+            rec["bound_ms"], rec["bound_by"], (rec["R_real"],) = bound_ms(
+                pack, k_out["nodes"], len(k_out["best_dist"]), d, [mr],
+                subsols)
+            recs.append(rec)
+            log("kernel-check " + json.dumps(rec))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -773,6 +931,424 @@ def phase_window(device, dim=80, block=60, warm=40):
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phase 5: SVP and CVP through the port's public functions
+# ---------------------------------------------------------------------------
+SVP_DIM, SVP_SEED = 56, 29   # proved SVP; see PERF.md section 4
+# CVP (both methods), dual SVP and sub-solutions: a seed whose reduced
+# basis has its largest r_ii first, so the proved CVP's reset below the top
+# level has no nested reset and goes to the card (cpu.py:_reset_on_device)
+CVP_DIM, CVP_SEED = 50, 2
+# the exact SVP/CVP answers are integers; float answers (the dual length,
+# sub-solution distances) agree to this relative error
+PHASE5_RTOL = 1e-9
+
+
+def intrel_basis(d: int, seed: int):
+    """gen_intrel(d, 10 d), the knapsack-style basis of fplll's
+    `latticegen r d b`, LLL- then BKZ-20-reduced on the host."""
+    from fplll_tpu_torch.algs.bkz import bkz_reduction
+    from fplll_tpu_torch.algs.wrapper import lll_reduction
+    from fplll_tpu_torch.nr.rng import RandGen
+    from fplll_tpu_torch.ops.gen import gen_intrel
+
+    RandGen.init_with_seed(seed)
+    b = gen_intrel(d, 10 * d)
+    lll_reduction(b)
+    bkz_reduction(b, 20, device="cpu")
+    return b
+
+
+class PathSpy:
+    """Counts what one call through the public functions did: nodes the
+    enumeration facades reported, each kernel launch's form, nodes and
+    walks (wrapping the enum_run that DeviceEnumerator calls), and the
+    proved-CVP resets the card handled."""
+
+    def __enter__(self):
+        from fplll_tpu_torch.enum import api, cpu, device, kernels
+
+        self.nodes = 0
+        self.device_nodes = 0
+        self.longest_walker_walk = self.longest_root_walk = 0
+        self.resets_on_card = 0
+        kernels.reset_launch_counts()
+        self._saved = [(device, "enum_run", device.enum_run),
+                       (api.Enumeration, "enumerate",
+                        api.Enumeration.enumerate),
+                       (cpu.EnumerationDyn, "_reset_on_device",
+                        cpu.EnumerationDyn._reset_on_device)]
+        run, enumerate_, reset = (f for _, _, f in self._saved)
+        spy = self
+
+        def enum_run(*a, **kw):
+            out = run(*a, **kw)
+            spy.device_nodes += int(out["nodes"].sum())
+            spy.longest_walker_walk = max(spy.longest_walker_walk,
+                                          int(out["steps"]))
+            spy.longest_root_walk = max(spy.longest_root_walk,
+                                        int(out.get("root_steps", 0)))
+            return out
+
+        def facade(self_, *a, **kw):
+            out = enumerate_(self_, *a, **kw)
+            spy.nodes += self_.get_nodes()
+            return out
+
+        def reset_on_device(self_, *a, **kw):
+            handled = reset(self_, *a, **kw)
+            spy.resets_on_card += bool(handled)
+            return handled
+
+        device.enum_run = enum_run
+        api.Enumeration.enumerate = facade
+        cpu.EnumerationDyn._reset_on_device = reset_on_device
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.enum import kernels
+
+        for owner, name, f in self._saved:
+            setattr(owner, name, f)
+        self.launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        return False
+
+    def record(self, wall_s: float) -> dict:
+        return {"wall_s": wall_s, "nodes": self.nodes,
+                "device_nodes": self.device_nodes, "launches": self.launches,
+                "longest_walker_walk": self.longest_walker_walk,
+                "longest_root_walk": self.longest_root_walk,
+                "resets_on_card": self.resets_on_card}
+
+
+def card_and_host(name, call, device, forms, **extra):
+    """One call on the card and the same call host-only (backend="cpu":
+    the native C core in f64 where the facade allows it); the card's must
+    have launched each of `forms`. Returns both results and the log
+    record."""
+    import torch
+
+    with PathSpy() as card:
+        t0 = time.perf_counter()
+        on_card = call(device=device)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    with PathSpy() as host:
+        t0 = time.perf_counter()
+        on_host = call(backend="cpu")
+        host_s = time.perf_counter() - t0
+    assert not host.launches, f"{name}: the host-only run launched"
+    for form in forms:
+        assert card.launches.get(form, 0) > 0, \
+            f"{name}: no {form} launch on the card ({card.launches})"
+    rec = {"case": name, "card": card.record(card_s),
+           "host": host.record(host_s), **extra}
+    return on_card, on_host, rec
+
+
+def lattice_point(b, coeffs):
+    return [sum(int(c) * int(b.a[i][j]) for i, c in enumerate(coeffs))
+            for j in range(b.ncols)]
+
+
+def gso_of(b):
+    """(mu^T, r, normexp) of an integer basis, exact Gram."""
+    import numpy as np
+    from fplll_tpu_torch.core.gso import MatGSO
+    from fplll_tpu_torch.defs import GSO_INT_GRAM
+    from fplll_tpu_torch.nr.fctx import MPCtx
+
+    gso = MatGSO(b.copy(), flags=GSO_INT_GRAM, ctx=MPCtx(120))
+    gso.update_gso()
+    mut, rdiag, normexp = gso.export_mu_r(0, b.nrows)
+    return np.asarray(mut, dtype=np.float64), \
+        np.asarray(rdiag, dtype=np.float64), normexp
+
+
+def partial_dist(x, mut, rdiag, k, dual=False) -> float:
+    """sum_{i >= k} r_i alpha_i^2 in f64: alpha_i = x_i - c_i, c_i =
+    -sum_{j > i} w_j mu_ji with w = x, or w = alpha for the dual
+    recurrence."""
+    import numpy as np
+    d = len(x)
+    alpha = np.zeros(d)
+    for i in range(d - 1, k - 1, -1):
+        w = alpha if dual else x
+        alpha[i] = x[i] + float(np.dot(w[i + 1:], mut[i, i + 1:]))
+    return float(np.dot(rdiag[k:], alpha[k:] ** 2))
+
+
+def dual_length(b, x) -> float:
+    """The squared length of the dual lattice vector with dual
+    coefficients x, recomputed in f64 from the basis (the dual tree's
+    recurrence over the reversed, inverted GSO)."""
+    import numpy as np
+    mut, rdiag, normexp = gso_of(b)
+    mu2, r2, _ = dual_tree(mut, np.ldexp(rdiag, normexp))
+    return partial_dist(np.asarray(x[::-1], dtype=np.float64), mu2, r2, 0,
+                        dual=True)
+
+
+def svp_tree_estimate(b) -> float:
+    """gh_tree_estimate of a proved SVP search on b from its starting
+    radius, the shortest basis vector."""
+    from fplll_tpu_torch.enum.device import gh_tree_estimate
+    mut, rdiag, normexp = gso_of(b)
+    A = min(sum(int(v) * int(v) for v in b.a[i]) for i in range(b.nrows))
+    return gh_tree_estimate(rdiag, None, math.ldexp(A, -normexp))
+
+
+def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
+                  svp_seed=SVP_SEED, seed=CVP_SEED):
+    """Phase 5: proved SVP, both CVP methods, dual SVP and sub-solutions
+    through the port's public functions on the card, each answer held
+    against the same call host-only. Sizes are parameters only so the
+    phase can be rehearsed small."""
+    import random
+
+    import numpy as np
+    from fplll_tpu_torch.algs.svpcvp import (closest_vector, shortest_vector,
+                                             shortest_vector_ex,
+                                             shortest_vector_pruning)
+    from fplll_tpu_torch.defs import CVPM_PROVED, SVP_DUAL
+    from fplll_tpu_torch.native import native_enumerate
+
+    recs = []
+    # proved SVP: the exact minimum norm is unique. Its size: d = 60 was
+    # asked for; the facade's own node estimate (gh_tree_estimate at the
+    # radius the search starts from, the shortest basis vector) of the
+    # smallest d = 60 tree among seeds 1-30 (seed 5) is logged beside this
+    # tree's, to show why the host certificate would take too long there
+    b = intrel_basis(svp_dim, svp_seed)
+    log("svp-size " + json.dumps({
+        f"d{svp_dim} seed {svp_seed}": svp_tree_estimate(b),
+        "d60 seed 5": svp_tree_estimate(intrel_basis(60, 5))}))
+    (sc, xc), (sh, xh), rec = card_and_host(
+        f"proved SVP d{svp_dim}",
+        lambda **kw: shortest_vector(b.copy(), **kw), device, ("f64",))
+    nc = sum(v * v for v in lattice_point(b, xc))
+    nh = sum(v * v for v in lattice_point(b, xh))
+    rec.update(status=(sc, sh), norm_card=nc, norm_host=nh)
+    log("svp-cvp " + json.dumps(rec))
+    assert sc == sh == 0 and nc == nh > 0, (sc, sh, nc, nh)
+    recs.append(rec)
+
+    # CVP, both methods: a lattice vector plus a random integer offset
+    # whose expected squared length is 1.1 times the Gaussian heuristic,
+    # so that the fast method's tree passes the card's crossover
+    b = intrel_basis(cvp_dim, seed)
+    mut, rdiag, normexp = gso_of(b)
+    gh = math.ldexp(math.exp(float(np.mean(np.log(rdiag))) + 2 * math.lgamma(
+        cvp_dim / 2 + 1) / cvp_dim) / math.pi, normexp)
+    R = max(1, round(math.sqrt(3 * 1.1 * gh / b.ncols)))
+    rng = random.Random(seed)
+    v = lattice_point(b, [rng.randint(-3, 3) for _ in range(cvp_dim)])
+    target = [c + rng.randint(-R, R) for c in v]
+
+    def cvp_dist(x):
+        return sum((t - c) ** 2 for t, c in zip(target, lattice_point(b, x)))
+
+    # the host runs the fast method both times: its proved method runs
+    # every reset on the Python DFS, far too slow at this size
+    for method in (0, CVPM_PROVED):
+        (sc, xc), (sh, xh), rec = card_and_host(
+            f"CVP method {method} d{cvp_dim}",
+            lambda **kw: closest_vector(
+                b.copy(), target, method=method if "device" in kw else 0,
+                **kw), device, ("f64",))
+        rec.update(status=(sc, sh), dist_card=cvp_dist(xc),
+                   dist_host_fast_method=cvp_dist(xh), offset_bound=R,
+                   gaussian_heuristic=gh)
+        log("svp-cvp " + json.dumps(rec))
+        assert sc == sh == 0 and \
+            rec["dist_card"] == rec["dist_host_fast_method"], rec
+        if method == CVPM_PROVED:
+            assert rec["card"]["resets_on_card"] > 0, "no reset on the card"
+        recs.append(rec)
+
+    # dual SVP: the dual length, a float. The card runs the dual tree in
+    # f32 (a FastEvaluator search, as in the JAX package), so the length
+    # it reports carries f32 rounding; the length of its vector,
+    # recomputed in f64, must be the host's (both reported in the
+    # evaluator's scale, the recomputed ones in the basis')
+    (sc, _, ec, _), (sh, _, eh, _), rec = card_and_host(
+        f"dual SVP d{cvp_dim}",
+        lambda **kw: shortest_vector_ex(b.copy(), flags=SVP_DUAL, **kw),
+        device, ("f32-dual",))
+    lc, lh = dual_length(b, ec.begin()[1]), dual_length(b, eh.begin()[1])
+    rec.update(status=(sc, sh), length_card=lc, length_host=lh,
+               reported_card=ec.begin()[0], reported_host=eh.begin()[0])
+    log("svp-cvp " + json.dumps(rec))
+    assert sc == sh == 0 and abs(lc - lh) <= PHASE5_RTOL * lh, rec
+    assert abs(rec["reported_card"] - rec["reported_host"]) <= \
+        F32_DIST_TOL * rec["reported_host"], rec
+    recs.append(rec)
+
+    # sub-solutions: each record is a passing node (its recomputed
+    # partial distance) and no longer than the shortest nonzero vector of
+    # its level's projected lattice where that one lies inside the
+    # search's final bound, where an unpruned search must have visited it
+    # (the C core finds that vector, one SVP per level)
+    t0 = time.perf_counter()
+    with PathSpy() as card:
+        sc, xc, ev = shortest_vector_pruning(b.copy(), [], find_subsols=True,
+                                             device=device)
+    card_s = time.perf_counter() - t0
+    assert card.launches.get("f64-subsols", 0) > 0, card.launches
+    lam = math.ldexp(sum(v * v for v in lattice_point(b, xc)), -normexp)
+    t0 = time.perf_counter()
+    worst, below, checked = 0.0, 0, 0
+    for lvl, (dist, vec) in enumerate(ev.sub_solutions):
+        if not vec:
+            continue
+        checked += 1
+        x = np.asarray(vec, dtype=np.float64)
+        assert np.all(x[:lvl] == 0), lvl
+        rec_n = math.ldexp(dist, -normexp)
+        true = partial_dist(x, mut, rdiag, lvl)
+        worst = max(worst, abs(true - rec_n) / true)
+        assert abs(true - rec_n) <= PHASE5_RTOL * true, (lvl, true, rec_n)
+        best = float(native_enumerate(
+            np.ascontiguousarray(mut[lvl:, lvl:]), rdiag[lvl:].copy(), None,
+            None, rdiag[lvl] * (1 + 1e-9), True, False, False)[1])
+        assert rec_n >= best * (1 - PHASE5_RTOL), (lvl, rec_n, best)
+        if best <= lam * (1 + PHASE5_RTOL):
+            below += 1
+            assert rec_n <= best * (1 + PHASE5_RTOL), (lvl, rec_n, best)
+    rec = {"case": f"sub-solutions d{cvp_dim}", "card": card.record(card_s),
+           "host_level_svps_s": time.perf_counter() - t0,
+           "levels_recorded": checked, "levels_inside_final_bound": below,
+           "worst_record_rel_err": worst, "status": sc}
+    log("svp-cvp " + json.dumps(rec))
+    assert sc == 0 and checked > 0 and below > 0, rec
+    recs.append(rec)
+    return recs
+
+
+# ---------------------------------------------------------------------------
+# phase 1: the build's instances
+# ---------------------------------------------------------------------------
+# registers of the six f32 instances of BKZ-2.0, (M, SMEM) -> registers,
+# as the source compiled them before the element type became a template
+# parameter, with the flags of kernels.build_kernel (no stack frame, no
+# spills; the nvcc release is printed beside them): a change to the
+# shared walk must leave them as they were
+BKZ_F32_PTXAS = {(32, False): 61, (32, True): 64, (64, False): 72,
+                 (64, True): 64, (128, False): 80, (128, True): 80}
+def ptxas_instances(build_log: str) -> dict:
+    """Per instance of enum_chunk_kernel (f32 primal) and
+    enum_chunk_ext_kernel in nvcc's `-Xptxas -v` output: (element type, M,
+    W, SMEM, extended walk) -> (registers, stack frame, spill stores,
+    spill loads)."""
+    out, key = {}, None
+    for line in build_log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(_Z\w+)", line)
+        if m:
+            t = re.match(r"_Z\d+enum_chunk_kernelILi(\d+)ELi(\d+)ELb([01])E",
+                         m.group(1))
+            e = re.match(r"_Z\d+enum_chunk_ext_kernelI([fd])Li(\d+)ELi"
+                         r"(\d+)E", m.group(1))
+            key = None
+            if t is not None:
+                key = ("float", int(t.group(1)), int(t.group(2)),
+                       t.group(3) == "1", False)
+            if e is not None:
+                key = ("double" if e.group(1) == "d" else "float",
+                       int(e.group(2)), int(e.group(3)), True, True)
+            if key is not None:
+                out.setdefault(key, [None, None, None, None])
+            continue
+        if key is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[key][1:] = [int(v) for v in m.groups()]
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[key][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+def phase_build() -> dict:
+    """Phase 1: build the kernel, print every instance's registers, stack
+    frame and spills, and assert the instance set (the six f32 instances
+    of BKZ-2.0, M x SMEM, and the extended walk per element type and M),
+    that nothing spills, and that the six f32 instances compile to the
+    registers of BKZ_F32_PTXAS."""
+    from fplll_tpu_torch.enum import kernels
+
+    t0 = time.perf_counter()
+    kernels.build_kernel()
+    build_s = time.perf_counter() - t0
+    release = subprocess.run([kernels._nvcc(), "--version"],
+                             capture_output=True, text=True).stdout
+    log(f"build enum_chunk.cu (nvcc {release.strip().splitlines()[-1]}): "
+        f"{build_s:.3f} s")
+    for line in kernels.BUILD_LOG.strip().splitlines():
+        log(f"  ptxas: {line.strip()}")
+    inst = ptxas_instances(kernels.BUILD_LOG)
+    log("ptxas: (type, M, W, SMEM, extended) -> (registers, stack frame, "
+        "spill stores, spill loads): " + json.dumps(
+            {str(k): v for k, v in sorted(inst.items())}))
+    bkz = {("float", M, 32, sm, False): (regs, 0, 0, 0)
+           for (M, sm), regs in BKZ_F32_PTXAS.items()}
+    ext = {(t, M, 32, True, True) for t in ("float", "double")
+           for M in (32, 64, 128)}
+    assert set(inst) == set(bkz) | ext, f"instances {sorted(inst)}"
+    assert all(v[1] == v[2] == v[3] == 0 for v in inst.values()), \
+        "an instance has a stack frame or spills"
+    for k, v in bkz.items():
+        assert inst[k] == v, f"{k}: {inst[k]} against {v}"
+    return {"nvcc_s": build_s, "instances": len(inst)}
+
+
+def extended_entries(ext_recs, svp_recs) -> list:
+    """The `kernels` line's entry of each form of the proved solvers: its
+    phase-2 numbers (count mode, and search mode where it ran) and its
+    launches on phase 5's path."""
+    launches = {}
+    for r in svp_recs:
+        for form, n in r["card"]["launches"].items():
+            launches[form] = launches.get(form, 0) + n
+    entries = []
+    for form in dict.fromkeys(r["form"] for r in ext_recs):
+        by_mode = {r["mode"]: r for r in ext_recs if r["form"] == form}
+        c = by_mode["count"]
+        elem = "double" if form.startswith("f64") else "float"
+        walk = ", ".join(w for w in ("dual" if "dual" in form else "",
+                                     "findsubsols" if "subsols" in form
+                                     else "") if w) or "primal"
+        entries.append({
+            "name": f"enum_chunk_ext_kernel<{elem}, M, 32> {form}",
+            "route": "cuda",
+            "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
+            "replaces": f"fplll_tpu/enum/tpu.py:213 (_enum_run, {elem} "
+                        f"{walk})",
+            "launches": launches.get(form, 0),
+            "max_abs_err": max(r["max_abs_err"] for r in by_mode.values()),
+            "ms": c["kernel_ms"],
+            "ms_search": by_mode["search"]["kernel_ms"]
+            if "search" in by_mode else None,
+            "plain_ms": c["plain_ms"],
+            "bound_ms": c["bound_ms"],
+            "bound_by": c["bound_by"],
+            "library_ms": None,
+            "native_ms": c["native_ms"],
+            "check": "pass",
+            "tolerance": "count mode: per-level nodes, solution count and "
+                         "sub-solution distances exactly equal; best "
+                         "distance bit-equal",
+            "shape": {k: c[k] for k in ("dim", "m", "m_real", "nfix", "R",
+                                        "R_real")},
+            "geometry": {k: c[k] for k in (
+                "walkers", "grid", "longest_walker_walk",
+                "longest_root_walk")},
+        })
+    return entries
+
+
 def main() -> int:
     try:
         import torch
@@ -799,19 +1375,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     # -- phase 1: build ----------------------------------------------------
-    t0 = time.perf_counter()
-    kernels.build_kernel()
-    log(f"build enum_chunk.cu (nvcc): {time.perf_counter() - t0:.3f} s")
-    for line in kernels.BUILD_LOG.strip().splitlines():
-        log(f"  ptxas: {line.strip()}")
-    frames = [tuple(int(v) for v in f) for f in re.findall(
-        r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-        r"(\d+) bytes spill loads", kernels.BUILD_LOG)]
-    log(f"ptxas: {len(frames)} kernel instances, (stack frame, spill "
-        f"stores, spill loads) bytes: {frames}")
-    # M in (32, 64, 128) x (shared, global memory), at W = ENUM_WIDTH
-    assert len(frames) == 3 * 2, "an instance is missing"
-    assert all(st == ld == 0 for _, st, ld in frames), "registers spill"
+    phase_build()
     for name, get in (("enum_core", native.get_lib),
                       ("lll_core", native.get_lll_lib),
                       ("bkz_core", native.get_bkz_lib)):
@@ -823,6 +1387,7 @@ def main() -> int:
     # -- phase 2: kernel against plain version -----------------------------
     t0 = time.perf_counter()
     forms, max_err, timing = phase_kernel_checks(device)
+    ext_recs = phase_extended_checks(device)
     log(f"phase 2 done in {time.perf_counter() - t0:.1f} s")
 
     # -- phase 3: the main path ----------------------------------------------
@@ -836,6 +1401,11 @@ def main() -> int:
     log(f"phase 4 done in {time.perf_counter() - t0:.1f} s; plain version "
         f"on the card, dim-56 window count mode: {timing['plain_ms']:.1f} ms "
         f"against the kernel's {timing['kernel_ms']:.1f} ms")
+
+    # -- phase 5: SVP and CVP through the public functions ------------------
+    t0 = time.perf_counter()
+    svp_recs = phase_svp_cvp(device)
+    log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
 
     grouped = next(f for f in forms if f["form"].startswith("grouped"))
     by_form = {"queue d56 count": timing["kernel_ms"],
@@ -868,11 +1438,12 @@ def main() -> int:
                      f"nodes within {SHRINK_TOL}x the count at the final "
                      "bound; grouped union best 1e-4 relative, its exact "
                      "norm the C core's to 1e-9",
-        "shape": {k: timing[k] for k in ("m", "m_real", "nfix", "R", "B")},
+        "shape": {k: timing[k] for k in ("m", "m_real", "nfix", "R", "R_real",
+                                         "B")},
         "geometry": {k: timing[k] for k in (
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_root_walk")},
-    }]}))
+    }] + extended_entries(ext_recs, svp_recs)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

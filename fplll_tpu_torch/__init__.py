@@ -1,11 +1,13 @@
 """fplll_tpu_torch — the PyTorch / CUDA port of fplll_tpu.
 
 The same lattice-reduction library as the JAX package beside it (LLL,
-HLLL, BKZ / BKZ-2.0), with the enumeration hot path on a hand-written
-CUDA kernel for Hopper (``csrc/enum_chunk.cu``) and the host
-orchestration (exact-integer LLL, GSO, the native C cores) carried over
-unchanged. SVP/CVP drivers, the pruner, the fpylll veneer and the CLIs
-are later slices of the port (ROADMAP.md).
+HLLL, BKZ / BKZ-2.0, proved and pruned SVP, dual SVP, fast and proved
+CVP), with the enumeration hot path on a hand-written CUDA kernel for
+Hopper (``csrc/enum_chunk.cu``: f32 trees for BKZ windows, f64 trees for
+the proved solvers, the dual recurrence and per-level sub-solutions) and
+the host orchestration (exact-integer LLL, GSO, the native C cores)
+carried over unchanged. The pruner, the fpylll veneer and the CLIs are
+later slices of the port (ROADMAP.md).
 
 Entry points that may reach the device run on ``cuda`` unless the caller
 asks for the CPU (``device='cpu'`` or ``FPLLL_TORCH_DEVICE=cpu``), see
@@ -29,6 +31,8 @@ from .algs.bkz import (BKZReduction, BKZAutoAbort, bkz_reduction,  # noqa: F401
                        hkz_reduction)
 from .algs.bkz_param import (BKZParam, PruningParams, Strategy,  # noqa: F401
                              load_strategies_json)
+from .algs.svpcvp import (closest_vector, shortest_vector,  # noqa: F401
+                          shortest_vector_pruning)
 from .threads import get_threads, set_threads  # noqa: F401
 from .torchsetup import resolve_device  # noqa: F401
 

@@ -14,8 +14,21 @@
  *     _chunk_call form; the lane-tile split that VMEM forced on the TPU
  *     has no counterpart here.
  *
+ * The same body, templated on the element type, also replaces the JAX
+ * package's XLA-jitted tree of the proved solvers (tpu.py:_make_step /
+ * _enum_run in f64, with the dual recurrence and per-level sub-solutions):
+ * enum_chunk_ext_kernel<T, M, W>, T float or double, with dual and
+ * findsubsols as runtime flags. Under dual a descend subtracts alpha_k =
+ * x_k - c_k instead of x_k, and an ascend restores it with the parent's
+ * x and center. With findsubsols each problem keeps one record per level
+ * (the passing node with the smallest nonzero partial distance, its
+ * coordinates from that level up and its root), lowered under a
+ * per-(problem, level) lock; level 0's candidate comes out of the absorbed
+ * leaf range. The f32 primal instances of BKZ-2.0 do not compile the
+ * extended walk.
+ *
  * What it computes (the contract of the JAX package's tpu._make_step /
- * _enum_run, f32 primal): each walker pops a subtree root with atomicAdd
+ * _enum_run): each walker pops a subtree root with atomicAdd
  * on its problem's cursor and walks the subtree depth-first, one node per
  * iteration - bound test pd + (x - c)^2 r <= prune * A, center partial
  * sums subtracted on descend and restored on ascend, zig-zag siblings
@@ -101,21 +114,26 @@
 #endif
 #define ENUM_SMEM_MAX 232448  /* dynamic shared memory a block may hold */
 
+/* Element type T of the floating-point arrays: float, or double when dbl
+   is set. Pointers to them are untyped here and cast in the kernel. */
 struct EnumParams {
-  const float *mut;      /* (G, m, m) transposed mu: mut[j][k] = mu_kj, j<k */
-  const float *rdiag;    /* (G, m) */
-  const float *prune;    /* (G, m) */
-  const float *mut_fix;  /* (G, m, nfixp) mu of device levels vs fixed levels */
-  const float *cp0;      /* (G, m) center partial sums of the target */
-  const float *roots_x;  /* (G, R, nfixp) fixed coordinates of each root */
-  const float *roots_pd; /* (G, R) root partial distances, ascending */
-  const float *A0;       /* (G,) per-problem bound */
+  const void *mut;       /* (G, m, m) transposed mu: mut[j][k] = mu_kj, j<k */
+  const void *rdiag;     /* (G, m) */
+  const void *prune;     /* (G, m) */
+  const void *mut_fix;   /* (G, m, nfixp) mu of device levels vs fixed levels */
+  const void *cp0;       /* (G, m) center partial sums of the target */
+  const void *roots_x;   /* (G, R, nfixp) fixed coordinates of each root */
+  const void *roots_a;   /* (G, R, nfixp) what a root feeds the center sums:
+                            roots_x, or alpha for dual */
+  const void *roots_pd;  /* (G, R) root partial distances, ascending */
+  const void *A0;        /* (G,) per-problem bound */
   const int *m_real;     /* (G,) number of real (non-padding) levels */
   int *cursor;           /* (G,) root queue cursors, start at 0 */
-  int *bound;            /* (1,) shared bound, f32 bit pattern */
-  float *bdist;          /* (G*walkers,) best distance per problem and
+  void *bound;           /* (1,) shared bound, the bit pattern of T (int or
+                            long long; positive values order alike) */
+  void *bdist;           /* (G*walkers,) best distance per problem and
                             walker, +inf until the walker finds one */
-  float *bdev;           /* (G*walkers, m) device coordinates of that best */
+  void *bdev;            /* (G*walkers, m) device coordinates of that best */
   int *bri;              /* (G*walkers,) root index of that best */
   unsigned long long *nodes;      /* (G, m) node counters */
   unsigned long long *sols;       /* (G,) solution counters */
@@ -123,8 +141,18 @@ struct EnumParams {
   unsigned long long *root_steps; /* (1,) longest walk under one root */
   int *aborted;          /* (1,) set when a walker passed max_steps (the
                             cap is checked every 32 iterations) */
+  /* per-level sub-solution records of each problem (findsubsols): the
+     smallest nonzero partial distance of a passing node at that level,
+     its coordinates from that level up and its root; the caller
+     initialises ss_dist to rdiag (the reference's records start at
+     r_kk) and ss_lock to 0 */
+  void *ss_dist;         /* (G, m) */
+  void *ss_vec;          /* (G, m, m) row k: levels k..m-1, zero below */
+  int *ss_root;          /* (G, m) */
+  int *ss_lock;          /* (G, m) */
   long long max_steps;
   int G, G_real, m, nfixp, R, walkers, is_svp, count_mode;
+  int dbl, dual, findsubsols;
 };
 
 /* launch geometry of one instance, as the launcher chooses it */
@@ -138,19 +166,24 @@ __host__ __device__ inline int enum_problem_floats(int m) {
 }
 
 /* dynamic shared memory of a launch: all real problems, or none when
-   they do not fit (then the kernel reads them from global memory) */
-__host__ __device__ inline int enum_smem_bytes(int m, int G_real) {
-  const long long b = (long long)G_real * enum_problem_floats(m) * 4;
+   they do not fit (then the kernel reads them from global memory); elem
+   is the size of T */
+__host__ __device__ inline int enum_smem_bytes(int m, int G_real,
+                                               int elem = 4) {
+  const long long b = (long long)G_real * enum_problem_floats(m) * elem;
   return b <= ENUM_SMEM_MAX ? (int)b : 0;
 }
 
 #ifdef __CUDACC__
-__device__ __forceinline__ float *dynamic_smem() {
-  extern __shared__ float enum_smem[];
+__device__ __forceinline__ void *dynamic_smem() {
+  extern __shared__ __align__(16) unsigned char enum_smem[];
   return enum_smem;
 }
+/* a waiting lock taker gives the issue slots to the lock's holder */
+__device__ __forceinline__ void spin_pause() { __nanosleep(32); }
 #else
-float *dynamic_smem(); /* the host emulation's per-block buffer */
+void *dynamic_smem(); /* the host emulation's per-block buffer */
+void spin_pause();    /* the host emulation lets another walker run */
 #endif
 
 namespace {
@@ -158,30 +191,69 @@ namespace {
 __device__ __forceinline__ float f_add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float f_sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float f_mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float f_div(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ float f_sqrt(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ float f_trunc(float a) { return truncf(a); }
+__device__ __forceinline__ float f_ceil(float a) { return ceilf(a); }
+__device__ __forceinline__ float f_floor(float a) { return floorf(a); }
+__device__ __forceinline__ float f_max(float a, float b) { return fmaxf(a, b); }
+__device__ __forceinline__ float f_min(float a, float b) { return fminf(a, b); }
+__device__ __forceinline__ double f_add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double f_sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double f_mul(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double f_div(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ double f_sqrt(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ double f_trunc(double a) { return trunc(a); }
+__device__ __forceinline__ double f_ceil(double a) { return ceil(a); }
+__device__ __forceinline__ double f_floor(double a) { return floor(a); }
+__device__ __forceinline__ double f_max(double a, double b) { return fmax(a, b); }
+__device__ __forceinline__ double f_min(double a, double b) { return fmin(a, b); }
+
+/* the shared bound as the bit pattern of T, lowered with atomicMin (a
+   distance is never negative, so its bits order like the value) */
+template <typename T> __device__ __forceinline__ T load_bound(const void *bits);
+template <> __device__ __forceinline__ float load_bound<float>(const void *bits) {
+  return __int_as_float(*(volatile const int *)bits);
+}
+template <> __device__ __forceinline__ double load_bound<double>(const void *bits) {
+  return __longlong_as_double(*(volatile const long long *)bits);
+}
+__device__ __forceinline__ void lower_bound(void *bits, float v) {
+  atomicMin((int *)bits, __float_as_int(v));
+}
+__device__ __forceinline__ void lower_bound(void *bits, double v) {
+  atomicMin((long long *)bits, __double_as_longlong(v));
+}
 
 /* C round(): halves away from zero, the expression of _cround */
-__device__ __forceinline__ float cround(float x) {
-  return truncf(f_add(x, x >= 0.f ? 0.5f : -0.5f));
+template <typename T>
+__device__ __forceinline__ T cround(T x) {
+  return f_trunc(f_add(x, x >= T(0) ? T(0.5) : T(-0.5)));
 }
 
 /* next sibling: the stateless zig-zag around the rounded center
    (pallas_kernel.py:395-409); under an all-zero SVP prefix only x + 1 */
-__device__ __forceinline__ float next_sibling(float x, float c, float pd,
-                                              bool svp) {
-  if (svp && pd == 0.f) return f_add(x, 1.f);
-  const float cr = cround(c);
-  const float d0 = (c >= cr) ? 1.f : -1.f;
-  const float p = f_sub(x, cr);
-  return f_add(cr, f_add(-p, (f_mul(p, d0) <= 0.f) ? d0 : 0.f));
+template <typename T>
+__device__ __forceinline__ T next_sibling(T x, T c, T pd, bool svp) {
+  if (svp && pd == T(0)) return f_add(x, T(1));
+  const T cr = cround(c);
+  const T d0 = (c >= cr) ? T(1) : T(-1);
+  const T p = f_sub(x, cr);
+  return f_add(cr, f_add(-p, (f_mul(p, d0) <= T(0)) ? d0 : T(0)));
 }
 
-__device__ __forceinline__ float load_bound(const int *bits) {
-  return __int_as_float(*(volatile const int *)bits);
+template <typename T>
+__device__ __forceinline__ T leaf_dist(T v, T c0, T nd, T r0) {
+  const T a = f_sub(v, c0);
+  return f_add(nd, f_mul(f_mul(a, a), r0));
 }
 
-__device__ __forceinline__ bool leaf_ok(float v, float c0, float nd, float r0,
-                                        float bound0) {
-  const float a = f_sub(v, c0);
+/* leaf_dist(v, ...) <= bound0, spelled as its own expression: the f32
+   instances of BKZ-2.0 then compile to the registers they had before the
+   element type became a template parameter */
+template <typename T>
+__device__ __forceinline__ bool leaf_ok(T v, T c0, T nd, T r0, T bound0) {
+  const T a = f_sub(v, c0);
   return f_add(nd, f_mul(f_mul(a, a), r0)) <= bound0;
 }
 
@@ -204,10 +276,55 @@ __device__ __forceinline__ void put(T (&a)[S], bool owner, int slot, T v) {
 
 }  // namespace
 
-/* SMEM: mu, rdiag and prune of the real problems sit in shared memory
-   (enum_smem_bytes > 0), else they are read from global memory */
-template <int M, int W, bool SMEM>
-__global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) {
+/* sub-solutions: offer (dist, x_lvl, the walker's coordinates above lvl)
+   to problem g's record of level lvl. The records only fall, so the
+   unlocked read only filters; lane 0 takes the level's lock and re-checks,
+   and the owners write the coordinates before the lock is released.
+   Uniform within the walker: every decision is broadcast. x_one is the
+   coordinate of level 1 when lvl = 0 (a walker absorbing level 0 has not
+   stored it in x). */
+template <typename T, int S, int W>
+__device__ __forceinline__ void offer_subsol(const EnumParams &P, int g, int t,
+                                             unsigned gmask, int ridx, int lvl,
+                                             T dist, T x_lvl, T x_one,
+                                             const T (&x)[S]) {
+  const int m = P.m;
+  T *ss_dist = (T *)P.ss_dist + (size_t)g * m;
+  int *lock = P.ss_lock + (size_t)g * m + lvl;
+  int win = 0;
+  if (t == 0 && dist < *(volatile T *)(ss_dist + lvl)) {
+    while (atomicCAS(lock, 0, 1) != 0) spin_pause();
+    __threadfence();
+    win = dist < *(volatile T *)(ss_dist + lvl);
+    if (!win) atomicExch(lock, 0);
+  }
+  if (!__shfl_sync(gmask, win, 0, W)) return;
+  T *row = (T *)P.ss_vec + ((size_t)g * m + lvl) * m;
+#pragma unroll
+  for (int i = 0; i < S; i++) {
+    const int j = t + W * i;
+    if (j < m)
+      row[j] = j < lvl ? T(0) : j == lvl ? x_lvl
+             : j == lvl + 1 && lvl == 0 ? x_one : x[i];
+  }
+  __threadfence();
+  __shfl_sync(gmask, 0, 0, W);  /* every owner has written */
+  if (t == 0) {
+    *(volatile T *)(ss_dist + lvl) = dist;
+    P.ss_root[(size_t)g * m + lvl] = ridx;
+    __threadfence();
+    atomicExch(lock, 0);
+  }
+}
+
+/* The walk of one launch. T: the element type. SMEM: mu, rdiag and
+   prune of the real problems sit in shared memory (enum_smem_bytes > 0),
+   else they are read from global memory. EXT: the extended walk, with the
+   dual recurrence and the sub-solution records as runtime flags (P.dual,
+   P.findsubsols); the f32 primal trees of BKZ run the instances without
+   it. */
+template <typename T, int M, int W, bool SMEM, bool EXT>
+__device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
   static_assert(M % W == 0 && W >= 8 && W <= 32 && (W & (W - 1)) == 0,
                 "walker width: 8, 16 or 32 threads");
   constexpr int S = M / W;  /* levels each thread owns */
@@ -218,22 +335,23 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
               : ((1u << W) - 1u) << (threadIdx.x & 31 & ~(W - 1));
   const int walker = (int)((blockIdx.x * blockDim.x + threadIdx.x) / W);
   const bool svp = P.is_svp != 0, count_mode = P.count_mode != 0;
+  const bool dual = EXT && P.dual != 0, subsols = EXT && P.findsubsols != 0;
   const int pf = enum_problem_floats(m);
 
   /* s_mu[k * ld + j] = mut[j][k] for j < k: the row a descend from level
      k subtracts, contiguous in j; then rdiag and prune */
-  float *smem = dynamic_smem();
+  T *smem = static_cast<T *>(dynamic_smem());
   if (SMEM) {
     for (int g = 0; g < P.G_real; g++) {
-      float *s_mu = smem + g * pf;
-      const float *mut = P.mut + (size_t)g * m * m;
+      T *s_mu = smem + g * pf;
+      const T *mut = (const T *)P.mut + (size_t)g * m * m;
       for (int i = threadIdx.x; i < m * m; i += blockDim.x) {
         const int j = i / m, k = i - j * m;
-        s_mu[k * ld + j] = (j < k) ? mut[i] : 0.f;
+        s_mu[k * ld + j] = (j < k) ? mut[i] : T(0);
       }
       for (int i = threadIdx.x; i < m; i += blockDim.x) {
-        s_mu[m * ld + i] = P.rdiag[(size_t)g * m + i];
-        s_mu[m * ld + m + i] = P.prune[(size_t)g * m + i];
+        s_mu[m * ld + i] = ((const T *)P.rdiag)[(size_t)g * m + i];
+        s_mu[m * ld + m + i] = ((const T *)P.prune)[(size_t)g * m + i];
       }
     }
     __syncthreads();
@@ -241,12 +359,12 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
 
   /* the shared bound, read by one thread and broadcast to the group */
   auto group_bound = [&]() {
-    float b = 0.f;
-    if (t == 0) b = load_bound(P.bound);
+    T b = T(0);
+    if (t == 0) b = load_bound<T>(P.bound);
     return __shfl_sync(gmask, b, 0, W);
   };
 
-  float cs[S] = {}, x[S] = {}, pd[S] = {};
+  T cs[S] = {}, x[S] = {}, pd[S] = {};
   unsigned long long cnt[S];
   unsigned long long iters = 0ull, longest_root = 0ull;
   bool aborted = false;
@@ -258,8 +376,9 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
        pointer that could be either (that would make every shared load
        convert a generic address) */
     const int so = g * pf;
-    const float *g_mut = P.mut + (size_t)g * m * m;
-    const float *g_r = P.rdiag + (size_t)g * m, *g_p = P.prune + (size_t)g * m;
+    const T *g_mut = (const T *)P.mut + (size_t)g * m * m;
+    const T *g_r = (const T *)P.rdiag + (size_t)g * m;
+    const T *g_p = (const T *)P.prune + (size_t)g * m;
     auto mu = [&](int k, int j) {
       return SMEM ? smem[so + k * ld + j] : g_mut[(size_t)j * m + k];
     };
@@ -268,38 +387,38 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
       return SMEM ? smem[so + m * ld + m + k] : g_p[k];
     };
     const int mr = P.m_real[g];
-    const float A0 = P.A0[g];
-    const float *mf = P.mut_fix + (size_t)g * m * nfix;
-    const float *cp0 = P.cp0 + (size_t)g * m;
-    const float *roots_pd = P.roots_pd + (size_t)g * R;
-    const float *roots_x = P.roots_x + (size_t)g * R * nfix;
+    const T A0 = ((const T *)P.A0)[g];
+    const T *mf = (const T *)P.mut_fix + (size_t)g * m * nfix;
+    const T *cp0 = (const T *)P.cp0 + (size_t)g * m;
+    const T *roots_pd = (const T *)P.roots_pd + (size_t)g * R;
+    const T *roots_a = (const T *)P.roots_a + (size_t)g * R * nfix;
     const size_t slot_gw = (size_t)g * P.walkers + walker;
-    float *bdev = P.bdev + slot_gw * m;
+    T *bdev = (T *)P.bdev + slot_gw * m;
 #pragma unroll
     for (int i = 0; i < S; i++) cnt[i] = 0ull;
     unsigned long long sols = 0ull;
-    float bdist = INFINITY;
-    float A = count_mode ? A0 : fminf(A0, group_bound());
+    T bdist = T(INFINITY);
+    T A = count_mode ? A0 : f_min(A0, group_bound());
 
     for (;;) {
       int ridx = 0;
       if (t == 0) ridx = atomicAdd(P.cursor + g, 1);
       ridx = __shfl_sync(gmask, ridx, 0, W);
       if (ridx >= R) break;
-      const float rpd = roots_pd[ridx];
-      if (!count_mode) A = fminf(A, group_bound());
+      const T rpd = roots_pd[ridx];
+      if (!count_mode) A = f_min(A, group_bound());
       if (!(rpd <= A)) {
         if (t == 0) atomicMax(P.cursor + g, R);
         break;
       }
       /* fresh root: cs = cp0 - sum_f root_f * mut_fix[:, f], summed in f
          order (the plain version sums in the same order) */
-      const float *root = roots_x + (size_t)ridx * nfix;
+      const T *root = roots_a + (size_t)ridx * nfix;
 #pragma unroll
       for (int i = 0; i < S; i++) {
         const int j = t + W * i;
         if (j < mr) {
-          float acc = 0.f;
+          T acc = T(0);
           for (int f = 0; f < nfix; f++)
             acc = f_add(acc, f_mul(root[f], mf[(size_t)j * nfix + f]));
           cs[i] = f_sub(cp0[j], acc);
@@ -314,13 +433,13 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
          cs and pd trail them by one shuffle, off the chain of dependent
          steps. */
       int k = mr - 1;
-      float ck = __shfl_sync(gmask, pick(cs, k / W), k & (W - 1), W);
-      float xk = cround(ck);
-      if (svp && rpd == 0.f) xk = fmaxf(xk, 0.f);
-      float pdk = rpd, rk = rdiag(k), pk = prune(k);
-      float cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
-      float mkn = mu(k, k - 1);
-      float xp = 0.f, cp = 0.f, pdp = 0.f;  /* no level above the root */
+      T ck = __shfl_sync(gmask, pick(cs, k / W), k & (W - 1), W);
+      T xk = cround(ck);
+      if (svp && rpd == T(0)) xk = f_max(xk, T(0));
+      T pdk = rpd, rk = rdiag(k), pk = prune(k);
+      T cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
+      T mkn = mu(k, k - 1);
+      T xp = T(0), cp = T(0), pdp = T(0);  /* no level above the root */
       const unsigned long long iters0 = iters;
 
       for (;;) {
@@ -330,37 +449,60 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
             aborted = true;
             break;
           }
-          if (!count_mode) A = fminf(A, group_bound());
+          if (!count_mode) A = f_min(A, group_bound());
         }
-        const float alpha = f_sub(xk, ck);
-        const float nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
+        const T alpha = f_sub(xk, ck);
+        const T nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
         if (nd <= f_mul(pk, A)) {
           put(cnt, t == (k & (W - 1)), k / W, pick(cnt, k / W) + 1ull);
+          if constexpr (EXT)
+            if (subsols && nd > T(0))
+              offer_subsol<T, S, W>(P, g, t, gmask, ridx, k, nd, xk, xk, x);
+          /* what a descend from level k subtracts: x_k, or alpha_k */
+          const T wk = dual ? alpha : xk;
           if (k == 1) {
             /* the whole level-0 sibling range [lo, hi] at once */
-            const float tt = f_mul(xk, mkn);
-            const float c0 = f_sub(cn, tt);
-            const float r0 = rdiag(0);
-            const float bound0 = f_mul(prune(0), A);
-            const float w = __fsqrt_rn(
-                __fdiv_rn(fmaxf(f_sub(bound0, nd), 0.f), r0));
-            float lo = ceilf(f_sub(c0, w)), hi = floorf(f_add(c0, w));
+            const T tt = f_mul(wk, mkn);
+            const T c0 = f_sub(cn, tt);
+            const T r0 = rdiag(0);
+            const T bound0 = f_mul(prune(0), A);
+            const T w = f_sqrt(f_div(f_max(f_sub(bound0, nd), T(0)), r0));
+            T lo = f_ceil(f_sub(c0, w)), hi = f_floor(f_add(c0, w));
             /* one endpoint correction each way: the count then equals the
                stepwise walk's per-leaf bound tests */
-            if (leaf_ok(f_add(hi, 1.f), c0, nd, r0, bound0)) hi = f_add(hi, 1.f);
-            if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, 1.f);
-            if (leaf_ok(f_sub(lo, 1.f), c0, nd, r0, bound0)) lo = f_sub(lo, 1.f);
-            if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, 1.f);
-            const bool trivial = svp && nd == 0.f;
-            if (trivial) lo = fmaxf(lo, 0.f);
-            const float n = fmaxf(f_add(f_sub(hi, lo), 1.f), 0.f);
+            if (leaf_ok(f_add(hi, T(1)), c0, nd, r0, bound0)) hi = f_add(hi, T(1));
+            if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, T(1));
+            if (leaf_ok(f_sub(lo, T(1)), c0, nd, r0, bound0)) lo = f_sub(lo, T(1));
+            if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, T(1));
+            const bool trivial = svp && nd == T(0);
+            if (trivial) lo = f_max(lo, T(0));
+            const T n = f_max(f_add(f_sub(hi, lo), T(1)), T(0));
             cnt[0] += t == 0 ? (unsigned long long)n : 0ull;
-            sols += (unsigned long long)(trivial ? fmaxf(f_sub(n, 1.f), 0.f) : n);
-            const bool have = trivial ? (hi >= 1.f) : (n > 0.f);
+            sols += (unsigned long long)(trivial ? f_max(f_sub(n, T(1)), T(0)) : n);
+            const bool have = trivial ? (hi >= T(1)) : (n > T(0));
             if (have) {
-              const float xb = trivial ? 1.f : fminf(fmaxf(cround(c0), lo), hi);
-              const float ab = f_sub(xb, c0);
-              const float db = f_add(nd, f_mul(f_mul(ab, ab), r0));
+              const T xb = trivial ? T(1) : f_min(f_max(cround(c0), lo), hi);
+              const T ab = f_sub(xb, c0);
+              const T db = f_add(nd, f_mul(f_mul(ab, ab), r0));
+              if constexpr (EXT) if (subsols) {
+                /* level 0's record: the passing leaf with the smallest
+                   nonzero distance; past a leaf on its center, the
+                   nearer neighbour (on a tie, the one the zig-zag
+                   visits first) */
+                T xs = xb, ds = db;
+                if (!(db > T(0))) {
+                  const T d0 = (c0 >= xb) ? T(1) : T(-1);
+                  const T xa = f_add(xb, d0), xo = f_sub(xb, d0);
+                  const bool ina = xa >= lo && xa <= hi;
+                  const bool ino = xo >= lo && xo <= hi;
+                  const T da = leaf_dist(xa, c0, nd, r0);
+                  const T dz = leaf_dist(xo, c0, nd, r0);
+                  xs = ina && (!ino || da <= dz) ? xa : xo;
+                  ds = ina && (!ino || da <= dz) ? da : ino ? dz : T(0);
+                }
+                if (ds > T(0))
+                  offer_subsol<T, S, W>(P, g, t, gmask, ridx, 0, ds, xs, xk, x);
+              }
               if (db < bdist) {
                 bdist = db;
 #pragma unroll
@@ -369,13 +511,13 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
                   if (j < mr) bdev[j] = j == 0 ? xb : j == 1 ? xk : x[i];
                 }
                 if (t == 0) {
-                  P.bdist[slot_gw] = db;
+                  ((T *)P.bdist)[slot_gw] = db;
                   P.bri[slot_gw] = ridx;
                 }
               }
               if (!count_mode && db < A) {
                 A = db;
-                if (t == 0) atomicMin(P.bound, __float_as_int(db));
+                if (t == 0) lower_bound(P.bound, db);
               }
             }
             /* the stepwise walk descends to level 0 and restores on the
@@ -385,11 +527,11 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
             cs[0] = t == 0 ? cn : cs[0];
             xk = next_sibling(xk, ck, pdk, svp);
           } else {
-            /* descend: the owners subtract x_k mu[k][j] from cs[j], j < k */
+            /* descend: the owners subtract w_k mu[k][j] from cs[j], j < k */
 #pragma unroll
             for (int i = 0; i < S; i++) {
               const int j = t + W * i;
-              const float v = f_sub(cs[i], f_mul(xk, mu(k, min(j, m - 1))));
+              const T v = f_sub(cs[i], f_mul(wk, mu(k, min(j, m - 1))));
               if (j < k) cs[i] = v;
             }
             put(x, t == (k & (W - 1)), k / W, xk);
@@ -398,7 +540,7 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
             cp = ck;
             pdp = pdk;
             --k;
-            ck = f_sub(cn, f_mul(xp, mkn));  /* = the owner's new cs[k] */
+            ck = f_sub(cn, f_mul(wk, mkn));  /* = the owner's new cs[k] */
             xk = cround(ck);
             pdk = nd;
             rk = rdiag(k);
@@ -407,16 +549,18 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
             mkn = mu(k, k - 1);
           }
         } else {
-          /* ascend: the owners restore cs[j], j < k + 1, with x_{k+1} */
+          /* ascend: the owners restore cs[j], j < k + 1, with what the
+             descend from level k + 1 subtracted */
           if (++k >= mr) break;
+          const T wp = dual ? f_sub(xp, cp) : xp;
 #pragma unroll
           for (int i = 0; i < S; i++) {
             const int j = t + W * i;
-            const float v = f_add(cs[i], f_mul(xp, mu(k, min(j, m - 1))));
+            const T v = f_add(cs[i], f_mul(wp, mu(k, min(j, m - 1))));
             if (j < k) cs[i] = v;
           }
           mkn = mu(k, k - 1);
-          cn = f_add(ck, f_mul(xp, mkn));  /* = the owner's restored cs[k-1] */
+          cn = f_add(ck, f_mul(wp, mkn));  /* = the owner's restored cs[k-1] */
           xk = next_sibling(xp, cp, pdp, svp);
           ck = cp;
           pdk = pdp;
@@ -449,19 +593,47 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
   }
 }
 
+/* the f32 primal instances of BKZ-2.0 */
+template <int M, int W, bool SMEM>
+__global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) {
+  enum_chunk_walk<float, M, W, SMEM, false>(P);
+}
+
+/* the extended walk, one problem in shared memory; at least one block
+   per SM, so that ptxas keeps its larger state in registers (with the
+   primal instances' bounds the float M = 128 instance spilled) */
+template <typename T, int M, int W>
+__global__ void __launch_bounds__(ENUM_THREADS, 1)
+enum_chunk_ext_kernel(EnumParams P) {
+  enum_chunk_walk<T, M, W, true, true>(P);
+}
+
 typedef void (*EnumKernel)(EnumParams);
 
 /* the instance for a launch over G_real problems of height m (nullptr if
-   none) */
-static EnumKernel enum_instance(int m, int G_real) {
+   none): the f32 primal instances of BKZ, or, for f64 (dbl) or the
+   extended walk (ext: dual or sub-solutions), the extended instance of
+   the element type, for one problem held in shared memory */
+static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
 #define ENUM_INSTANCES(MM) \
   {enum_chunk_kernel<MM, ENUM_WIDTH, false>, \
    enum_chunk_kernel<MM, ENUM_WIDTH, true>}
   static const EnumKernel table[3][2] = {
       ENUM_INSTANCES(32), ENUM_INSTANCES(64), ENUM_INSTANCES(128)};
 #undef ENUM_INSTANCES
+#define ENUM_EXT_INSTANCES(TT) \
+  {enum_chunk_ext_kernel<TT, 32, ENUM_WIDTH>, \
+   enum_chunk_ext_kernel<TT, 64, ENUM_WIDTH>, \
+   enum_chunk_ext_kernel<TT, 128, ENUM_WIDTH>}
+  static const EnumKernel ext_table[2][3] = {ENUM_EXT_INSTANCES(float),
+                                             ENUM_EXT_INSTANCES(double)};
+#undef ENUM_EXT_INSTANCES
   const int b = m <= 32 ? 0 : m <= 64 ? 1 : 2;
   if (m < 2 || m > ENUM_MAXM || G_real < 1) return nullptr;
+  if (dbl || ext) {
+    if (G_real != 1 || enum_smem_bytes(m, 1, dbl ? 8 : 4) == 0) return nullptr;
+    return ext_table[dbl ? 1 : 0][b];
+  }
   return table[b][enum_smem_bytes(m, G_real) > 0];
 }
 
@@ -472,14 +644,15 @@ static EnumKernel enum_instance(int m, int G_real) {
 static int enum_bucket(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : 128; }
 
 /* The geometry of a launch over problems of height m with G_real real
-   problems: grid 0 means blocks per SM (from the occupancy of the
+   problems, of element type double (dbl) or float, on the extended walk
+   (ext) or not: grid 0 means blocks per SM (from the occupancy of the
    instance with its dynamic shared memory) times the SMs of the current
    device. */
-extern "C" int enum_chunk_geometry(int m, int G_real, int grid,
-                                   EnumGeometry *out) {
-  const EnumKernel fn = enum_instance(m, G_real);
+extern "C" int enum_chunk_geometry(int m, int G_real, int dbl, int ext,
+                                   int grid, EnumGeometry *out) {
+  const EnumKernel fn = enum_instance(m, G_real, dbl, ext);
   if (!fn || G_real < 1 || grid < 0) return (int)cudaErrorInvalidValue;
-  const int smem = enum_smem_bytes(m, G_real);
+  const int smem = enum_smem_bytes(m, G_real, dbl ? 8 : 4);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return (int)e;
@@ -507,13 +680,14 @@ extern "C" int enum_chunk_launch(const EnumParams *hp, int grid,
   EnumParams P = *hp;
   if (P.G < 1 || P.G_real < 1 || P.G_real > P.G || P.R < 1 || P.nfixp < 0)
     return (int)cudaErrorInvalidValue;
+  const int ext = P.dual || P.findsubsols;
   EnumGeometry geo;
-  const int e = enum_chunk_geometry(P.m, P.G_real, grid, &geo);
+  const int e = enum_chunk_geometry(P.m, P.G_real, P.dbl, ext, grid, &geo);
   if (e != 0) return e;
   if (P.walkers != geo.walkers) return (int)cudaErrorInvalidValue;
   void *args[] = {&P};
   const cudaError_t le = cudaLaunchKernel(
-      (const void *)enum_instance(P.m, P.G_real), dim3(geo.grid),
+      (const void *)enum_instance(P.m, P.G_real, P.dbl, ext), dim3(geo.grid),
       dim3(geo.threads), args, (size_t)geo.smem, (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();

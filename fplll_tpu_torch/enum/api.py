@@ -7,13 +7,15 @@ enumerate_ext.cpp:34-46 registration): the facade first offers the tree
 search to the registered scale-out backend (the batched CUDA kernel from
 fplll_tpu_torch.enum.device, or any user-registered enumerator), and falls
 back to the sequential host oracle when the backend declines (tiny dims,
-dual/reset/certified paths it does not support).
+subtrees, the proved-CVP reset walk, large or first-N solution lists).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional, Sequence
 
+from ..torchsetup import resolve_device
 from .cpu import EnumerationDyn
 from .evaluator import Evaluator
 
@@ -65,10 +67,13 @@ class Enumeration:
     def __init__(self, gso, evaluator: Evaluator,
                  max_indices: Optional[List[int]] = None,
                  nr_threads: int = 0, backend: str | None = None,
-                 external: Optional[Callable] = None):
+                 external: Optional[Callable] = None, device=None):
         # `external`: this facade's scale-out enumerator in place of the
-        # registered one (BKZ binds its device into the default backend)
+        # registered one (BKZ binds its device into the default backend);
+        # `device`: the device of the default backend and of the host
+        # oracle's CVP resets (torchsetup.resolve_device)
         self._external = external
+        self._device = device
         self._gso = gso
         self._evaluator = evaluator
         self._max_indices = max_indices or []
@@ -91,6 +96,10 @@ class Enumeration:
         ext = None
         if self._backend != "cpu":
             ext = self._external or registered_enumerator()
+            if self._external is None and self._device is not None:
+                from .device import device_external_enumerator
+                if ext is device_external_enumerator:
+                    ext = functools.partial(ext, device=self._device)
         use_external = (
             ext is not None
             and not self._max_indices          # reset path: host only
@@ -108,7 +117,13 @@ class Enumeration:
             if self._backend == "device":
                 raise RuntimeError(
                     "device enumeration backend declined the job")
-        dyn = EnumerationDyn(self._gso, self._evaluator, self._max_indices)
+        # the proved-CVP resets go to the card unless this facade is
+        # host-only
+        reset_device = None
+        if self._max_indices and self._backend != "cpu":
+            reset_device = resolve_device(self._device)
+        dyn = EnumerationDyn(self._gso, self._evaluator, self._max_indices,
+                             device=reset_device)
         self._dyn = dyn
         out = dyn.enumerate(first, last, fmaxdist, fmaxdistexpo, target_coord,
                             subtree, pruning, dual, subtree_reset)

@@ -36,10 +36,13 @@ class EnumerationDyn:
     """Single-tree DFS enumerator over a GSO object block [first, last)."""
 
     def __init__(self, gso, evaluator: Evaluator,
-                 max_indices: Optional[List[int]] = None):
+                 max_indices: Optional[List[int]] = None, device=None):
         self._gso = gso
         self._evaluator = evaluator
         self._max_indices = max_indices or []
+        # the device of the CVP reset's sub-enumerations (a resolved
+        # torch.device); None keeps them on this host DFS
+        self.device = device
         self.nodes: List[int] = []
         self.d = 0
 
@@ -233,7 +236,8 @@ class EnumerationDyn:
             v, e = self._gso.get_r_exp(i, i)
             new_dist += math.ldexp(self._gso.ctx.to_float(v), e)
         new_evaluator = FastEvaluator()
-        sub = EnumerationDyn(self._gso, new_evaluator, self._max_indices)
+        sub = EnumerationDyn(self._gso, new_evaluator, self._max_indices,
+                             device=self.device)
         sub.enumerate(0, self.d, new_dist, 0, self.target, partial_sol,
                       self.pruning_bounds, False, True)
         if not new_evaluator.empty():
@@ -245,11 +249,42 @@ class EnumerationDyn:
                 self._process_solution(sol_dist + cur_dist)
 
     def _reset_on_device(self, cur_dist: float, new_dim: int) -> bool:
-        """Device hand-off of the CVP reset's sub-enumeration. The JAX
-        package runs it on its f64/dd32 kernels; the port has no f64 tree
-        yet, so the host DFS handles every reset until the f64 slice
-        (ROADMAP.md) and this returns False."""
-        return False
+        """Budgeted hybrid for the reset machinery: when the lower block
+        is device-sized and has no nested reset level of its own
+        (max_indices[new_dim-1] == 0), run the sub-enumeration through
+        the batched kernel, in f64, instead of a recursive host DFS.
+        Returns True when the device handled it (including a
+        no-improvement outcome). A failed build or launch raises: the
+        host DFS never reruns a reset the device was given."""
+        nested = (self._max_indices[new_dim - 1]
+                  if new_dim - 1 < len(self._max_indices) else 0)
+        if self.device is None or self.dual or nested != 0:
+            return False
+        from . import device as enum_device
+        if new_dim < enum_device._MIN_TPU_DIM:
+            return False
+        import numpy as np
+        mu = np.asarray(self.mut, dtype=np.float64)
+        rdiag = np.asarray(self.rdiag[:new_dim], dtype=np.float64)
+        fixed = np.asarray([self.x[j] for j in range(new_dim, self.d)])
+        cp0 = np.asarray(self.target[:new_dim], dtype=np.float64)
+        if len(fixed):
+            cp0 = cp0 - mu[:new_dim, new_dim:self.d] @ fixed
+        maxdist = float(rdiag.sum())   # sum r_ii, normalized scale
+        prune = (np.asarray(self.pruning_bounds[:new_dim])
+                 if self.pruning_bounds else None)
+        ev = FastEvaluator()           # normExp 0: stays normalized
+        enum = enum_device.DeviceEnumerator(batch=256, device=self.device,
+                                            dtype=enum_device.torch.float64)
+        enum.enumerate(mu[:new_dim, :new_dim], rdiag, prune, cp0, maxdist,
+                       False, ev)
+        if not ev.empty():
+            sol_dist, sol = ev.begin()
+            if sol_dist + cur_dist < self.partdistbounds[0]:
+                for i in range(new_dim):
+                    self.x[i] = sol[i]
+                self._process_solution(sol_dist + cur_dist)
+        return True
 
     # -- sibling stepping (enumerate_base.h:145-172) -------------------------
     def _next_pos_up(self) -> bool:

@@ -3,8 +3,8 @@
 The port of the JAX package's enum/tpu.py. The search tree is split at
 a host-chosen level into many subtree roots (generalizing enumlib's two
 "swirl" levels, enum-parallel/enumlib_dim.cpp:40-45); the CUDA kernel of
-:mod:`fplll_tpu_torch.enum.kernels` walks them, one lane per CUDA
-thread, popping roots from an on-device queue and sharing one shrinking
+:mod:`fplll_tpu_torch.enum.kernels` walks them, one warp per subtree
+walker, popping roots from an on-device queue and sharing one shrinking
 bound (the design of enumlib's walkers, enumeration.h:68-146, 412-505).
 
 Zig-zag sibling stepping, SVP symmetry breaking, pruning bounds
@@ -13,10 +13,12 @@ follow the reference contracts (enumerate_base.h:79-172), so this
 backend is interchangeable with the host oracle behind
 fplll_tpu_torch.enum.api.
 
-This slice runs f32 primal trees only. The facade declines (the host
-oracle runs) where the JAX package would take its f64, dd32, dual or
-sub-solution kernels; trees taller than the kernel's height raise.
-ROADMAP.md lists both as later slices.
+Trees run in f32 (heuristic searches: BKZ windows) or f64 (the
+error-bounded evaluators of the proved SVP/CVP solvers), primal or with
+the dual recurrence, and report per-level sub-solutions on request; the
+JAX package's TPU stand-in for f64 (compensated f32 pairs) has no role
+on the card. Trees taller than the kernel's height run through the
+chunked deep-tree search.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ __all__ = ["DeviceEnumerator", "device_external_enumerator",
            "gh_tree_estimate", "auto_batch"]
 
 _F32 = torch.float32
+_F64 = torch.float64
 
 
 class DeviceEnumerator:
@@ -45,7 +48,7 @@ class DeviceEnumerator:
     subtree roots, merges lane solutions into the evaluator."""
 
     def __init__(self, batch: int = 1024, max_device_levels: int = MAX_LEVELS,
-                 target_root_factor: int = 32, device=None):
+                 target_root_factor: int = 32, device=None, dtype=_F32):
         self.batch = batch
         self.max_device_levels = max_device_levels
         self.target_root_factor = target_root_factor
@@ -54,37 +57,62 @@ class DeviceEnumerator:
         # BKZ window path sets them so that every window of a tour has
         # one launch shape
         self.pin_m = self.pin_nfix = self.pin_R = 0
-        # the tree runs in f32; candidates are re-verified exactly by the
-        # evaluator, and the bound gets a relative slack so f32 rounding
-        # cannot prune the true solution (the reference runs its tree in
-        # f64, nr.h:41)
-        self.bound_slack = 1.0 + 1e-5
+        # the tree runs in f32 (heuristic searches) or f64 (certified
+        # ones, as the reference runs every tree, nr.h:41); candidates are
+        # re-verified exactly by the evaluator, and an f32 bound gets a
+        # relative slack so f32 rounding cannot prune the true solution
+        if dtype not in (_F32, _F64):
+            raise ValueError(f"tree dtype float32 or float64, not {dtype}")
+        self.dtype = dtype
+        self.bound_slack = 1.0 + 1e-5 if dtype == _F32 else 1.0
         self.nodes: np.ndarray = np.zeros(0, dtype=np.int64)
 
     # -- host-side root generation (layered top-tree expansion) -------------
     def _gen_roots(self, mut: np.ndarray, rdiag: np.ndarray,
                    prune: np.ndarray, cp0: np.ndarray, A: float,
-                   d: int, is_svp: bool, hard_cap: int = 1 << 22
-                   ) -> Tuple[np.ndarray, np.ndarray, int]:
+                   d: int, is_svp: bool, dual: bool = False,
+                   subsols: Optional[dict] = None, start=None,
+                   hard_cap: int = 1 << 22
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, int]:
         """Expand the top of the tree level by level until enough subtree
-        roots exist. Returns (root_x (R, d-m), root_pd (R,), m); root_x
-        column j holds the coordinate of level m+j. Top-level node counts
-        accumulate into self.nodes."""
-        from ..native import native_gen_roots
+        roots exist. Returns (root_x (R, d-m), root_a (R, d-m), root_pd
+        (R,), m); root_x column j holds the coordinate of level m+j and
+        root_a what it feeds the center sums (x, or alpha for dual).
+        Top-level node counts accumulate into self.nodes; when subsols is
+        a dict, per-level best partials found during expansion are
+        recorded into it as level -> (dist, x-tail).
 
+        `start` = (xs, als, pd, height) resumes expansion from an
+        existing frontier whose columns hold levels [height, d) (the
+        chunked deep-tree path re-expands bounded slices this way). The
+        frontier never grows past hard_cap rows: above the kernel height
+        the caller chunks and recurses (_deep_enumerate)."""
         target = self.target_root_factor * self.batch
-        # native expansion (enum_core.c): same layout and node counts as
-        # the level loop below, which runs only past its capacity
-        out = native_gen_roots(mut, rdiag, prune, cp0, A, is_svp, False,
-                               self.max_device_levels, target)
-        if out is not None:
-            xs, _, pd, m, nodes = out
-            self.nodes[:d] += nodes.astype(np.int64)[:d]
-            return xs, pd, m
-        xs = np.zeros((1, 0))
-        pd = np.zeros(1)
-        zero_prefix = np.array([is_svp])
-        lvl = d - 1
+        if subsols is None and start is None and hard_cap >= (1 << 22):
+            # native expansion (enum_core.c): same layout and node counts
+            # as the level loop below, which runs past its capacity and
+            # for what it does not cover (sub-solutions, a start frontier)
+            from ..native import native_gen_roots
+            out = native_gen_roots(mut, rdiag, prune, cp0, A, is_svp, dual,
+                                   self.max_device_levels, target)
+            if out is not None:
+                xs, als, pd, m, nodes = out
+                self.nodes[:d] += nodes.astype(np.int64)[:d]
+                return xs, als, pd, m
+        if start is None:
+            xs = np.zeros((1, 0))
+            als = np.zeros((1, 0))
+            pd = np.zeros(1)
+            zero_prefix = np.array([is_svp])
+            lvl = d - 1
+        else:
+            xs, als, pd, height = start
+            xs = np.ascontiguousarray(xs, dtype=np.float64)
+            als = np.ascontiguousarray(als, dtype=np.float64)
+            pd = np.ascontiguousarray(pd, dtype=np.float64)
+            zero_prefix = (np.all(xs == 0.0, axis=1) if is_svp
+                           else np.zeros(len(pd), dtype=bool))
+            lvl = height - 1
         while lvl >= 1:
             m_cand = lvl + 1
             if m_cand <= self.max_device_levels and \
@@ -93,8 +121,9 @@ class DeviceEnumerator:
                 break
             if m_cand > self.max_device_levels and \
                     xs.shape[0] >= hard_cap:
-                break
-            c = cp0[lvl] - (xs @ mut[lvl, lvl + 1:d] if xs.shape[1] else 0.0)
+                break   # hard memory bound: the caller chunks and recurses
+            acc = als if dual else xs
+            c = cp0[lvl] - (acc @ mut[lvl, lvl + 1:d] if acc.shape[1] else 0.0)
             c = np.asarray(c, dtype=np.float64) + np.zeros(xs.shape[0])
             room = prune[lvl] * A - pd
             w = np.sqrt(np.maximum(room, 0.0) / rdiag[lvl])
@@ -104,7 +133,7 @@ class DeviceEnumerator:
             cnt = np.maximum(hi - lo + 1, 0)
             if m_cand > self.max_device_levels and \
                     int(cnt.sum()) >= hard_cap:
-                break
+                break   # would blow the hard bound
             self.nodes[lvl] += int(cnt.sum())
             idx = np.repeat(np.arange(xs.shape[0]), cnt)
             offs = (np.arange(len(idx)) -
@@ -114,22 +143,33 @@ class DeviceEnumerator:
             a = xv - c[idx]
             pd = pd[idx] + a * a * rdiag[lvl]
             xs = np.concatenate([xv[:, None], xs[idx]], axis=1)
+            als = np.concatenate([a[:, None], als[idx]], axis=1)
             zero_prefix = zero_prefix[idx] & (xv == 0)
+            if subsols is not None and len(pd):
+                nz = pd > 0.0
+                if nz.any():
+                    i = int(np.argmin(np.where(nz, pd, np.inf)))
+                    prev = subsols.get(lvl)
+                    if prev is None or pd[i] < prev[0]:
+                        subsols[lvl] = (float(pd[i]), xs[i].copy())
             lvl -= 1
         m = lvl + 1
         keep = pd <= A
         # each level was prepended at column 0, so columns are already in
         # ascending level order m..d-1
-        return xs[keep], pd[keep], m
+        return xs[keep], als[keep], pd[keep], m
 
     # -- main entry ----------------------------------------------------------
     def enumerate(self, mut: np.ndarray, rdiag: np.ndarray,
                   prune: Optional[np.ndarray], cp0: np.ndarray, maxdist: float,
                   is_svp: bool, evaluator: Evaluator,
-                  count_mode: bool = False) -> Tuple[float, np.ndarray]:
+                  count_mode: bool = False,
+                  dual: bool = False) -> Tuple[float, np.ndarray]:
         """Search the full tree over levels [0, d). All quantities are in
         the normalized scale of the caller (2^-normexp, like the extenum
-        contract). Returns (final maxdist, per-level node counts)."""
+        contract); for dual the caller passes the already-transformed
+        (mu, rdiag) and un-reverses solutions. Returns (final maxdist,
+        per-level node counts)."""
         d = len(rdiag)
         mut = np.asarray(mut, dtype=np.float64)
         rdiag = np.asarray(rdiag, dtype=np.float64)
@@ -138,33 +178,96 @@ class DeviceEnumerator:
         cp0 = np.asarray(cp0, dtype=np.float64)
         self.nodes = np.zeros(d, dtype=np.int64)
         A = float(maxdist)
-        roots_x, roots_pd, m_real = self._gen_roots(
-            mut, rdiag, prune, cp0, A, d, is_svp)
+        findsubsols = bool(evaluator.findsubsols)
+        host_subsols: Optional[dict] = {} if findsubsols else None
+        roots_x, roots_a, roots_pd, m_real = self._gen_roots(
+            mut, rdiag, prune, cp0, A, d, is_svp, dual=dual,
+            subsols=host_subsols,
+            hard_cap=getattr(self, "deep_hard_cap", 1 << 22))
+        args = (mut, rdiag, prune, cp0, A, maxdist, d, is_svp, evaluator,
+                count_mode, dual, findsubsols, host_subsols, roots_x,
+                roots_a, roots_pd, m_real)
         if m_real > self.max_device_levels:
-            raise NotImplementedError(
-                f"a device tree of height {m_real} exceeds the kernel's "
-                f"{self.max_device_levels} levels; the chunked deep-tree "
-                "search is a later slice of the port (ROADMAP.md)")
-        md = self._launch(mut, rdiag, prune, cp0, A, maxdist, d, is_svp,
-                          evaluator, count_mode, roots_x, roots_pd, m_real)
-        return md, self.nodes
+            return self._deep_enumerate(*args), self.nodes
+        return self._launch(*args), self.nodes
+
+    def _deep_enumerate(self, mut, rdiag, prune, cp0, A, maxdist_in, d,
+                        is_svp, evaluator, count_mode, dual, findsubsols,
+                        host_subsols, xs, als, pd, height) -> float:
+        """Chunked deep-tree search for trees taller than the kernel
+        height (the reference's in-core ceiling is dim 256,
+        fplll's configure.ac:161-168): the over-tall frontier is
+        processed depth-first in bounded slices, each slice re-expanded
+        under a hard cap until its remaining height fits the device, and
+        the shrinking bound is carried across slice launches. Peak host
+        memory is bounded by the cap's rows per pending level."""
+        md = float(maxdist_in)
+        CH = 2048
+        cap = 1 << 16
+        self._deep_slices = 0     # diagnostics: launches via this path
+        stack = [(xs, als, pd, height)]
+        while stack:
+            fx, fa, fpd, lh = stack.pop()
+            bound = A if count_mode else min(A, md)
+            live = fpd <= bound
+            fx, fa, fpd = fx[live], fa[live], fpd[live]
+            for i in range(0, len(fpd), CH):
+                cx, ca, cpd = fx[i:i + CH], fa[i:i + CH], fpd[i:i + CH]
+                rx, ra, rpd, m2 = self._gen_roots(
+                    mut, rdiag, prune, cp0, bound, d, is_svp, dual=dual,
+                    subsols=host_subsols, start=(cx, ca, cpd, lh),
+                    hard_cap=cap)
+                if m2 > self.max_device_levels:
+                    if m2 == lh:
+                        # no forward progress: this chunk's next level
+                        # alone would blow the cap, and re-pushing the
+                        # same frontier would loop forever. Split the
+                        # chunk, or (one root) raise the cap up to a hard
+                        # memory ceiling.
+                        if len(cpd) > 1:
+                            h = len(cpd) // 2
+                            stack.append((cx[:h], ca[:h], cpd[:h], lh))
+                            stack.append((cx[h:], ca[h:], cpd[h:], lh))
+                            continue
+                        cap2 = cap
+                        while m2 == lh and cap2 < (1 << 22):
+                            cap2 *= 4
+                            rx, ra, rpd, m2 = self._gen_roots(
+                                mut, rdiag, prune, cp0, bound, d, is_svp,
+                                dual=dual, subsols=host_subsols,
+                                start=(cx, ca, cpd, lh), hard_cap=cap2)
+                        if m2 == lh:
+                            raise MemoryError(
+                                "deep-tree chunk cannot advance: one "
+                                "subtree root expands past the host "
+                                "memory ceiling at a single level")
+                    stack.append((rx, ra, rpd, m2))
+                else:
+                    self._deep_slices += 1
+                    md = self._launch(mut, rdiag, prune, cp0, bound, md,
+                                      d, is_svp, evaluator, count_mode,
+                                      dual, findsubsols, host_subsols,
+                                      rx, ra, rpd, m2)
+        return md
 
     def _pack(self, mut, rdiag, prune, cp0, d, roots_x, roots_pd,
-              m_real) -> dict:
+              m_real, roots_a=None) -> dict:
         """Sort one root batch and pad it to the kernel buckets. Returns
-        the tensors of enum_run (on this enumerator's device) with the
-        padded height m and the real height m_real."""
+        the tensors of enum_run (on this enumerator's device, in its
+        dtype) with the padded height m and the real height m_real;
+        roots_a (what the roots feed the center sums under dual) rides
+        along when given."""
         order = np.argsort(roots_pd)
         roots_x, roots_pd = roots_x[order], roots_pd[order]
         nfix = d - m_real
         # pad the device tree height to a bucket; virtual levels admit
-        # exactly x = 0 (center 0, the 1e30 rdiag sentinel kills any
-        # sibling)
+        # exactly x = 0 (center 0, the rdiag sentinel kills any sibling:
+        # 1e300 in f64, 1e30 in f32 where it must stay representable)
         m = min(max(((m_real + 7) // 8) * 8, self.pin_m),
                 self.max_device_levels)
         mut_pad = np.zeros((m, m))
         mut_pad[:m_real, :m_real] = mut[:m_real, :m_real]
-        rdiag_pad = np.full(m, 1e30)
+        rdiag_pad = np.full(m, 1e30 if self.dtype == _F32 else 1e300)
         rdiag_pad[:m_real] = rdiag[:m_real]
         prune_pad = np.ones(m)
         prune_pad[:m_real] = prune[:m_real]
@@ -189,38 +292,50 @@ class DeviceEnumerator:
         rpd_pad[:R] = roots_pd
 
         def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=_F32,
+            return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
                                    device=self.device)
 
-        return {"mut": dev(mut_pad), "rdiag": dev(rdiag_pad),
-                "prune": dev(prune_pad), "mut_fix": dev(mut_fix_pad),
-                "cp0": dev(cp0_pad), "roots_x": dev(rx_pad),
-                "roots_pd": dev(rpd_pad), "m": m, "m_real": min(m_real, m)}
+        out = {"mut": dev(mut_pad), "rdiag": dev(rdiag_pad),
+               "prune": dev(prune_pad), "mut_fix": dev(mut_fix_pad),
+               "cp0": dev(cp0_pad), "roots_x": dev(rx_pad),
+               "roots_pd": dev(rpd_pad), "m": m, "m_real": min(m_real, m)}
+        if roots_a is not None:
+            ra_pad = np.zeros((R_pad, nfix_pad))
+            ra_pad[:R, :nfix] = roots_a[order]
+            out["roots_a"] = dev(ra_pad)
+        return out
 
     def _launch(self, mut, rdiag, prune, cp0, A, maxdist_in, d, is_svp,
-                evaluator, count_mode, roots_x, roots_pd, m_real) -> float:
+                evaluator, count_mode, dual, findsubsols, host_subsols,
+                roots_x, roots_a, roots_pd, m_real) -> float:
         """Run the device search over one root batch (one launch), merge
         the results into the evaluator; returns the updated maxdist in the
         caller's scale."""
         nfix = d - m_real
+        self._last_m_real = m_real      # diagnostics: device tree height
         state = enum_run(**self._pack(mut, rdiag, prune, cp0, d, roots_x,
-                                      roots_pd, m_real),
+                                      roots_pd, m_real,
+                                      roots_a if dual else None),
                          A0=A * self.bound_slack, is_svp=bool(is_svp),
                          count_mode=bool(count_mode), max_steps=1 << 30,
-                         batch=self.batch)
+                         batch=self.batch, dual=bool(dual),
+                         findsubsols=findsubsols)
         # levels m_real..m-1 are virtual bucket padding: every lane walks
         # them once per root (x=0 only), so their counters are artifacts
         upto = min(m_real, d)
         self.nodes[:upto] += state["nodes"].cpu().numpy()[:upto]
         bd = state["best_dist"].double().cpu().numpy()
-        bdev = state["best_dev"].cpu().numpy()
-        broot = state["best_root"].cpu().numpy()
+        bdev = state["best_dev"].double().cpu().numpy()
+        broot = state["best_root"].double().cpu().numpy()
         found = np.isfinite(bd)
         best_overall = [
             (float(bd[i]),
              np.concatenate([bdev[i][:m_real], broot[i][:nfix]]))
             for i in np.where(found)[0]]
         best_overall.sort(key=lambda t: t[0])
+
+        if findsubsols:
+            self._report_subsols(evaluator, state, host_subsols, m_real, nfix)
 
         maxdist_out = maxdist_in
         if count_mode:
@@ -229,6 +344,29 @@ class DeviceEnumerator:
         for dist, full in best_overall[:max(evaluator.max_sols * 4, 8)]:
             maxdist_out = evaluator.eval_sol(list(full), dist, maxdist_out)
         return maxdist_out
+
+    @staticmethod
+    def _report_subsols(evaluator, state, host_subsols, m_real: int,
+                        nfix: int) -> None:
+        """Merge the device's per-level best partials (levels < m_real)
+        with the host expansion's records (levels >= m_real) into the
+        evaluator (reference: enumerate_base.cpp:203-207
+        process_subsolution)."""
+        ss_dist = state["subsol_dist"].double().cpu().numpy()
+        ss_vec = state["subsol_vec"].double().cpu().numpy()
+        ss_root = state["subsol_root"].double().cpu().numpy()
+        for lvl in range(m_real):
+            dist = float(ss_dist[lvl])
+            if not np.isfinite(dist) or dist <= 0.0:
+                continue
+            full = np.concatenate([ss_vec[lvl][:m_real], ss_root[lvl][:nfix]])
+            if not np.any(full):
+                continue  # level never improved on the initial r_kk record
+            evaluator.eval_sub_sol(lvl, [float(v) for v in full], dist)
+        if host_subsols:
+            for lvl, (dist, tail) in sorted(host_subsols.items()):
+                full = [0.0] * lvl + [float(v) for v in tail]
+                evaluator.eval_sub_sol(lvl, full, dist)
 
 
 # ---------------------------------------------------------------------------
@@ -268,12 +406,21 @@ def auto_batch(est_nodes: float) -> int:
     return 4096 if est_nodes > 3e8 else 1024
 
 
-def _make_enumerator(est_nodes: float = 0.0, device=None) -> DeviceEnumerator:
+def _make_enumerator(est_nodes: float = 0.0, device=None,
+                     dtype=_F32) -> DeviceEnumerator:
     """The single-card enumerator for the facade (the multi-card mesh is
     a later slice of the port)."""
     from ..threads import get_batch
     batch = auto_batch(est_nodes) if est_nodes > 0 else get_batch()
-    return DeviceEnumerator(batch=batch, device=device)
+    return DeviceEnumerator(batch=batch, device=device, dtype=dtype)
+
+
+def _unreverse_dual(evaluator) -> None:
+    """Dual solutions come out in dual (reversed) coordinate order
+    (enumerate.cpp:154-157 reverse_by_swap); sub-solutions stay as they
+    are."""
+    for i, (sdist, sol) in enumerate(evaluator.solutions):
+        evaluator.solutions[i] = (sdist, sol[::-1])
 
 
 def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
@@ -290,12 +437,8 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     d = last - first
     if len(subtree) or d < _MIN_TPU_DIM or d > 1024:
         return None
-    # this slice runs f32 primal trees only: certified searches
-    # (error-bounded evaluators need f64), dual trees and sub-solution
-    # reporting stay on the host oracle until the f64 slice (ROADMAP.md)
-    if dual or evaluator.findsubsols or \
-            isinstance(evaluator, ErrorBoundedEvaluator):
-        return None
+    if dual and len(target_coord):
+        return None  # CVP for dual undefined (enumerate.cpp:73)
     count_mode = getattr(evaluator, "eval_mode", 0) == 1  # EVALMODE_COUNT
     if not count_mode and (evaluator.max_sols > 32 or
                            evaluator.strategy ==
@@ -308,6 +451,14 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
 
     device = resolve_device(device)
     mut, rdiag, normexp = gso.export_mu_r(first, last)
+    if dual:
+        # reversed/inverted transform (enumerate.cpp:98-121): the tree then
+        # runs the alpha-accumulating dual recurrence in the kernel
+        normexp = -normexp
+        rd = np.asarray(rdiag, dtype=np.float64)
+        mu = np.asarray(mut, dtype=np.float64)
+        rdiag = (1.0 / (rd * 2.0 ** (-2 * normexp)))[::-1].copy()
+        mut = np.triu(-(mu.T)[::-1, ::-1], 1)
     maxdist = math.ldexp(fmaxdist, fmaxdistexpo - normexp)
     evaluator.set_normexp(normexp)
     is_svp = len(target_coord) == 0
@@ -331,13 +482,13 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     hybrid_budget = int(os.environ.get("FPLLL_TPU_HYBRID_NODES",
                                        str(default_budget)))
     if not count_mode and hybrid_budget > 0 and \
-            evaluator.max_sols == 1 and \
+            not evaluator.findsubsols and evaluator.max_sols == 1 and \
             evaluator.strategy == EVALSTRATEGY_BEST_N_SOLUTIONS and \
             not isinstance(evaluator, CallbackEvaluator):
         from ..native import native_enumerate
         out = native_enumerate(mut, rdiag, prune,
                                cp0 if not is_svp else None,
-                               maxdist, is_svp, False, False,
+                               maxdist, is_svp, dual, False,
                                node_budget=hybrid_budget)
         if out is not None:
             new_max, best_dist, best_x, _sc, cnodes, visited = out
@@ -347,12 +498,14 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
                                              best_dist, new_max)
             maxdist = min(maxdist, new_max)
             if visited < hybrid_budget:     # full tree explored
+                if dual and not evaluator.empty():
+                    _unreverse_dual(evaluator)
                 return math.ldexp(maxdist, normexp - fmaxdistexpo), \
                     total_nodes
 
     # If the top of the tree is too wide (typically a CVP bound of
     # sum r_ii), tighten the radius with a budgeted host dive first.
-    if not count_mode and evaluator.empty():
+    if not count_mode and not dual and evaluator.empty():
         top_width = 2.0 * math.sqrt(max(maxdist, 0.0) / rdiag[d - 1]) + 1.0
         if top_width > 64.0:
             dyn = EnumerationDyn(gso, evaluator)
@@ -371,18 +524,27 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     trial = maxdist
     if not count_mode and maxdist > 4.0 * gh2:
         trial = min(gh2 / 16.0, maxdist)
+    # f32 tree for heuristic searches (BKZ windows: FastEvaluator and
+    # exact postprocessing); certified completeness (the error-bounded
+    # evaluators of the proved SVP/CVP solvers) needs more than a 24-bit
+    # mantissa: the card's hardware f64, as the reference runs every tree
+    # (nr/nr.h:41). The JAX package's TPU stand-in for f64, compensated
+    # f32 pairs, has no role here.
+    dtype = _F64 if isinstance(evaluator, ErrorBoundedEvaluator) else _F32
     while True:
         enum = _make_enumerator(gh_tree_estimate(rdiag, prune, trial),
-                                device=device)
+                                device=device, dtype=dtype)
         new_maxdist, nodes = enum.enumerate(mut, rdiag, prune, cp0, trial,
                                             is_svp, evaluator,
-                                            count_mode=count_mode)
+                                            count_mode=count_mode, dual=dual)
         total_nodes[:len(nodes)] += nodes
         found = (not evaluator.empty()) and \
             math.ldexp(evaluator.begin()[0], -normexp) <= trial * 1.0000001
         if count_mode or found or trial >= maxdist:
             break
         trial = min(trial * 2.5, maxdist)
+    if dual and not evaluator.empty():
+        _unreverse_dual(evaluator)
     return math.ldexp(min(new_maxdist, trial), normexp - fmaxdistexpo), \
         total_nodes
 
@@ -410,7 +572,7 @@ def _pack_grouped(muts, rdiags, prunes, maxdists, device, batch: int):
                                 device=device)
         enum.nodes = np.zeros(d, dtype=np.int64)
         A_g = float(maxdists[g]) * slack
-        rx, rpd, m_real = enum._gen_roots(
+        rx, _, rpd, m_real = enum._gen_roots(
             np.asarray(muts[g], np.float64), np.asarray(rdiags[g],
                                                         np.float64),
             np.asarray(prunes[g], np.float64), cp0, A_g, d, True)

@@ -16,8 +16,9 @@ ctypes. Two wrappers launch it:
 
 A wrapper given CUDA tensors launches the kernel or raises; given CPU
 tensors it runs the plain PyTorch version, a vectorized port of the
-lockstep step of `tpu._make_step`/`_enum_run` (f32 primal SVP/CVP, count
-and search mode). Nothing on the card's path calls the plain version.
+lockstep step of `tpu._make_step`/`_enum_run` (SVP/CVP, count and search
+mode; enum_run also in f64, with the dual recurrence and with per-level
+sub-solutions). Nothing on the card's path calls the plain version.
 
 Geometry: the kernel's walkers are groups of W threads (the source's
 ENUM_WIDTH, a compile-time constant) on a persistent grid that the
@@ -27,9 +28,9 @@ sizes the root queue (DeviceEnumerator's target_root_factor x batch) and
 is the plain version's lane count. The per-walker outputs hold one slot
 per (problem, walker), sized from the geometry the launcher reports.
 
-Counts: ``LAUNCHES`` counts kernel launches per wrapper and nothing
-else, ``PLAIN_RUNS`` the wrappers' runs of the plain version, ``GRIDS``
-the launch geometries (grid, blocks per SM, SMs) per wrapper; node
+Counts: ``LAUNCHES`` counts kernel launches per form (``FORMS``) and
+nothing else, ``PLAIN_RUNS`` the wrappers' runs of the plain version,
+``GRIDS`` the launch geometries (grid, blocks per SM, SMs) per form; node
 counters are int64 (uint64 in the kernel), never f32.
 """
 
@@ -45,7 +46,7 @@ from ..torchsetup import torch
 
 __all__ = ["enum_run", "enum_run_grouped", "enum_run_plain",
            "enum_run_grouped_plain", "build_kernel", "LAUNCHES", "PLAIN_RUNS",
-           "reset_launch_counts", "MAX_LEVELS", "GRIDS"]
+           "reset_launch_counts", "MAX_LEVELS", "GRIDS", "FORMS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PKG, "csrc", "enum_chunk.cu")
@@ -53,12 +54,24 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 MAX_LEVELS = 128          # ENUM_MAXM of the CUDA source
 _K_TOP = 128              # walkers kept by the finalize (tpu._enum_run)
 
-LAUNCHES: Dict[str, int] = {"single": 0, "grouped": 0}
+# the forms a wrapper launches: "single" (enum_run, f32 primal),
+# "grouped" (enum_run_grouped) and enum_run's extended walks, named by
+# element type and walk (see _form)
+FORMS = ("single", "grouped", "f64", "f32-dual", "f64-dual", "f32-subsols",
+         "f64-subsols", "f32-dual-subsols", "f64-dual-subsols")
+LAUNCHES: Dict[str, int] = {form: 0 for form in FORMS}
 # runs of the plain version through the wrappers (CPU tensors)
-PLAIN_RUNS: Dict[str, int] = {"single": 0, "grouped": 0}
-# (grid, blocks per SM, SMs) of each launch geometry used, per wrapper
-GRIDS: Dict[str, Set[Tuple[int, int, int]]] = {"single": set(),
-                                               "grouped": set()}
+PLAIN_RUNS: Dict[str, int] = {form: 0 for form in FORMS}
+# (grid, blocks per SM, SMs) of each launch geometry used, per form
+GRIDS: Dict[str, Set[Tuple[int, int, int]]] = {form: set() for form in FORMS}
+
+
+def _form(dtype, dual: bool, findsubsols: bool) -> str:
+    """The LAUNCHES key of one enum_run call."""
+    if dtype == torch.float32 and not dual and not findsubsols:
+        return "single"
+    return ("f64" if dtype == torch.float64 else "f32") + \
+        ("-dual" if dual else "") + ("-subsols" if findsubsols else "")
 
 
 def reset_launch_counts() -> None:
@@ -75,13 +88,14 @@ class _EnumParams(ctypes.Structure):
     """Mirror of EnumParams in csrc/enum_chunk.cu (order and types)."""
 
     _fields_ = [(name, ctypes.c_void_p) for name in (
-        "mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x", "roots_pd",
-        "A0", "m_real", "cursor", "bound", "bdist", "bdev", "bri", "nodes",
-        "sols", "steps", "root_steps", "aborted")] + \
+        "mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x", "roots_a",
+        "roots_pd", "A0", "m_real", "cursor", "bound", "bdist", "bdev", "bri",
+        "nodes", "sols", "steps", "root_steps", "aborted", "ss_dist",
+        "ss_vec", "ss_root", "ss_lock")] + \
         [("max_steps", ctypes.c_longlong)] + \
         [(name, ctypes.c_int) for name in (
             "G", "G_real", "m", "nfixp", "R", "walkers", "is_svp",
-            "count_mode")]
+            "count_mode", "dbl", "dual", "findsubsols")]
 
 
 class _EnumGeometry(ctypes.Structure):
@@ -136,7 +150,7 @@ def build_kernel() -> ctypes.CDLL:
         os.replace(tmp, so)
     lib = ctypes.CDLL(so)
     lib.enum_chunk_geometry.restype = ctypes.c_int
-    lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 3 + [
+    lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(_EnumGeometry)]
     lib.enum_chunk_launch.restype = ctypes.c_int
     lib.enum_chunk_launch.argtypes = [ctypes.POINTER(_EnumParams),
@@ -157,21 +171,28 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 
 def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
              *, G_real: int, walkers: int, is_svp: bool, count_mode: bool,
-             max_steps: int):
-    """Check the stacked inputs of G problems, allocate the outputs (one
-    slot per problem and walker) on their device and fill the kernel's
-    parameter struct."""
+             max_steps: int, roots_a=None, dual: bool = False,
+             findsubsols: bool = False):
+    """Check the stacked inputs of G problems (float32 or float64, all
+    alike), allocate the outputs (one slot per problem and walker, and
+    the per-level sub-solution records) on their device and fill the
+    kernel's parameter struct."""
     G, m, _ = mut.shape
     R, nfixp = roots_x.shape[1], roots_x.shape[2]
-    dev = mut.device
-    f32, i32 = torch.float32, torch.int32
+    dev, ft = mut.device, mut.dtype
+    i32 = torch.int32
+    if ft not in (torch.float32, torch.float64):
+        raise ValueError(f"mut: float32 or float64, got {ft}")
+    if roots_a is None:
+        roots_a = roots_x
     for t, name, shape in ((mut, "mut", (G, m, m)), (rdiag, "rdiag", (G, m)),
                            (prune, "prune", (G, m)),
                            (mut_fix, "mut_fix", (G, m, nfixp)),
                            (cp0, "cp0", (G, m)),
                            (roots_x, "roots_x", (G, R, nfixp)),
+                           (roots_a, "roots_a", (G, R, nfixp)),
                            (roots_pd, "roots_pd", (G, R)), (A0, "A0", (G,))):
-        _check(t, name, f32, shape, dev)
+        _check(t, name, ft, shape, dev)
     _check(m_real, "m_real", i32, (G,), dev)
     if not 2 <= m <= MAX_LEVELS:
         raise ValueError(f"tree height {m} outside [2, {MAX_LEVELS}]")
@@ -183,9 +204,9 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
     GW = G * walkers
     out = {
         "cursor": torch.zeros(G, dtype=i32, device=dev),
-        "bound": torch.full((1,), float("inf"), dtype=f32, device=dev),
-        "bdist": torch.full((GW,), float("inf"), dtype=f32, device=dev),
-        "bdev": torch.zeros((GW, m), dtype=f32, device=dev),
+        "bound": torch.full((1,), float("inf"), dtype=ft, device=dev),
+        "bdist": torch.full((GW,), float("inf"), dtype=ft, device=dev),
+        "bdev": torch.zeros((GW, m), dtype=ft, device=dev),
         "bri": torch.zeros(GW, dtype=i32, device=dev),
         "nodes": torch.zeros((G, m), dtype=torch.int64, device=dev),
         "sols": torch.zeros(G, dtype=torch.int64, device=dev),
@@ -193,19 +214,29 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
         "root_steps": torch.zeros(1, dtype=torch.int64, device=dev),
         "aborted": torch.zeros(1, dtype=i32, device=dev),
     }
+    if findsubsols:
+        # the records start at r_kk (evaluator.h:36-56); root -1: none
+        out.update(ss_dist=rdiag.clone(),
+                   ss_vec=torch.zeros((G, m, m), dtype=ft, device=dev),
+                   ss_root=torch.full((G, m), -1, dtype=i32, device=dev),
+                   ss_lock=torch.zeros((G, m), dtype=i32, device=dev))
     p = _EnumParams()
     for name, t in (("mut", mut), ("rdiag", rdiag), ("prune", prune),
                     ("mut_fix", mut_fix), ("cp0", cp0),
-                    ("roots_x", roots_x), ("roots_pd", roots_pd),
-                    ("A0", A0), ("m_real", m_real)):
+                    ("roots_x", roots_x), ("roots_a", roots_a),
+                    ("roots_pd", roots_pd), ("A0", A0), ("m_real", m_real)):
         setattr(p, name, t.data_ptr())
     for name in ("cursor", "bound", "bdist", "bdev", "bri", "nodes", "sols",
-                 "steps", "root_steps", "aborted"):
-        setattr(p, name, out[name].data_ptr())
+                 "steps", "root_steps", "aborted", "ss_dist", "ss_vec",
+                 "ss_root", "ss_lock"):
+        if name in out:
+            setattr(p, name, out[name].data_ptr())
     p.max_steps = int(max_steps)
     p.G, p.G_real, p.m, p.nfixp, p.R = G, G_real, m, nfixp, R
     p.walkers = walkers
     p.is_svp, p.count_mode = int(is_svp), int(count_mode)
+    p.dbl = int(ft == torch.float64)
+    p.dual, p.findsubsols = int(dual), int(findsubsols)
     return p, out
 
 
@@ -217,7 +248,8 @@ def _raise(lib, rc: int, what: str) -> None:
 
 def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
     """One launch over G stacked problems on the current CUDA stream. The
-    launcher reports the geometry for (m, G_real, grid): grid 0 asks for
+    launcher reports the geometry for (m, G_real, element type, walk,
+    grid): grid 0 asks for
     blocks per SM times SMs (the persistent grid); it also gives threads
     per block, the walker width W, the height bucket M, blocks per SM,
     SMs, dynamic shared memory and walkers (grid * threads / W), which
@@ -227,9 +259,10 @@ def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
     lib = build_kernel()
     g = _EnumGeometry()
     with torch.cuda.device(dev):
-        _raise(lib, lib.enum_chunk_geometry(args[0].shape[-1], G_real,
-                                            grid, ctypes.byref(g)),
-               "geometry")
+        ext = kw.get("dual", False) or kw.get("findsubsols", False)
+        _raise(lib, lib.enum_chunk_geometry(
+            args[0].shape[-1], G_real, int(args[0].dtype == torch.float64),
+            int(ext), grid, ctypes.byref(g)), "geometry")
         geo = {name: getattr(g, name) for name, _ in _EnumGeometry._fields_}
         p, out = _prepare(*args, G_real=G_real, walkers=geo["walkers"], **kw)
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -249,13 +282,14 @@ def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
                      walkers: int, max_steps: int) -> dict:
     """The K = min(walkers, 128) best walkers and the problem's totals
     (the top-K finalize the JAX package ran as XLA after its Pallas
-    call)."""
+    call), and the sub-solution records with their roots' coordinates
+    (zero where a level kept its initial record)."""
     _raise_if_aborted(out, max_steps)
     R, nfix = roots_x.shape
     K = min(walkers, _K_TOP)
     negd, idx = torch.topk(-out["bdist"], K)
     bound = torch.clamp(out["bound"][0], max=float(A0))
-    return {
+    res = {
         "nodes": out["nodes"][0],
         "best_dist": -negd,
         "best_dev": out["bdev"][idx],
@@ -267,6 +301,14 @@ def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
         "root_steps": out["root_steps"][0],
         "geometry": out.get("geometry"),
     }
+    if "ss_dist" in out:
+        ri = out["ss_root"][0].long()
+        res["subsol_dist"] = out["ss_dist"][0]
+        res["subsol_vec"] = out["ss_vec"][0]
+        res["subsol_root"] = torch.where(
+            (ri >= 0)[:, None], roots_x[torch.clamp(ri, min=0)],
+            torch.zeros((), dtype=roots_x.dtype, device=roots_x.device))
+    return res
 
 
 def _finalize_grouped(out: dict, roots_x, A0, *, walkers: int,
@@ -297,15 +339,21 @@ def _finalize_grouped(out: dict, roots_x, A0, *, walkers: int,
 def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
              *, m: int, is_svp: bool, count_mode: bool,
              max_steps: int = 1 << 30, batch: int = 1024,
-             m_real: Optional[int] = None, grid: int = 0) -> dict:
-    """Enumerate one problem (the `_enum_run_pallas` contract, f32).
+             m_real: Optional[int] = None, grid: int = 0, roots_a=None,
+             dual: bool = False, findsubsols: bool = False) -> dict:
+    """Enumerate one problem (the `_enum_run_pallas` contract, and the
+    `tpu._enum_run` contract of its f64, dual and sub-solution trees).
 
     mut (m, m) is the transposed mu (mut = mu^T); rdiag/prune/cp0
     are (m,); mut_fix (m, nfix) couples device levels to the nfix fixed
     levels; roots_x (R, nfix) and roots_pd (R,) are the subtree roots,
     sorted by pd, padded with inf or 1e30. Levels m_real..m-1 are bucket
-    padding (rdiag 1e30). All tensors float32 on one device: CUDA
-    launches the kernel, CPU runs the plain version. Returns nodes (m,)
+    padding (rdiag 1e30 in f32, 1e300 in f64). All tensors float32, or
+    all float64, on one device: CUDA launches the kernel, CPU runs the
+    plain version. `roots_a` (R, nfix), what each root feeds the center
+    sums (alpha under `dual`, the dual recurrence; None: roots_x);
+    `findsubsols` adds the per-level best partials subsol_dist (m,),
+    subsol_vec (m, m) and subsol_root (m, nfix). Returns nodes (m,)
     int64, best_dist (K,), best_dev (K, m), best_root (K, nfix),
     sol_count, A, cursor and steps (the lockstep steps of the plain
     version; the longest walker walk of the kernel, which also returns
@@ -317,25 +365,29 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
     walkers ENUM_WIDTH threads wide. K is min(batch, 128) on the CPU and
     min(walkers, 128) on the card."""
     dev = mut.device
+    form = _form(mut.dtype, dual, findsubsols)
     if dev.type == "cpu":
-        PLAIN_RUNS["single"] += 1
+        PLAIN_RUNS[form] += 1
         return enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
                                roots_pd, A0, m=m, is_svp=is_svp,
                                count_mode=count_mode, max_steps=max_steps,
-                               batch=batch)
+                               batch=batch, roots_a=roots_a, dual=dual,
+                               findsubsols=findsubsols)
     if dev.type != "cuda":
         raise ValueError(f"enum_run: unsupported device {dev}")
     mr = m if m_real is None else int(m_real)
     out = _kernel_run(
         mut[None], rdiag[None], prune[None], mut_fix[None], cp0[None],
         roots_x[None], roots_pd[None],
-        torch.full((1,), float(A0), dtype=torch.float32, device=dev),
+        torch.full((1,), float(A0), dtype=mut.dtype, device=dev),
         torch.full((1,), mr, dtype=torch.int32, device=dev),
         G_real=1, grid=grid, is_svp=is_svp,
-        count_mode=count_mode, max_steps=max_steps)
-    LAUNCHES["single"] += 1
+        count_mode=count_mode, max_steps=max_steps,
+        roots_a=None if roots_a is None else roots_a[None], dual=dual,
+        findsubsols=findsubsols)
+    LAUNCHES[form] += 1
     geo = out["geometry"]
-    GRIDS["single"].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
+    GRIDS[form].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
     return _finalize_single(out, roots_x, A0, count_mode=count_mode,
                             walkers=geo["walkers"], max_steps=max_steps)
 
@@ -391,29 +443,37 @@ def _cround(x: torch.Tensor) -> torch.Tensor:
 
 def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                     *, m: int, is_svp: bool, count_mode: bool,
-                    max_steps: int, batch: int) -> dict:
+                    max_steps: int, batch: int, roots_a=None,
+                    dual: bool = False, findsubsols: bool = False) -> dict:
     """Lockstep DFS over B lanes with a root work queue: the port of
-    `tpu._make_step`/`_enum_run` restricted to f32 primal trees.
-    Per step every active lane does one bound test; passing lanes
-    descend (subtracting x*mu from the center partial sums of the levels
-    below), failing lanes ascend (restoring them) and step to the next
-    zig-zag sibling. Finished lanes pop the next roots in order."""
-    dev, f32 = mut.device, torch.float32
+    `tpu._make_step`/`_enum_run`, in the dtype of the inputs (float32 or
+    float64). Per step every active lane does one bound test; passing
+    lanes descend (subtracting x*mu, or alpha*mu for `dual`, from the
+    center partial sums of the levels below), failing lanes ascend
+    (restoring them) and step to the next zig-zag sibling. Finished lanes
+    pop the next roots in order. `roots_a` (R, nfix) are the values a
+    fresh root feeds the center sums (alpha for dual; None: roots_x);
+    `roots_x` are the reported coordinates. `findsubsols` also returns
+    the per-level best partials: subsol_dist (m,), subsol_vec (m, m) and
+    subsol_root (m, nfix)."""
+    dev, ft = mut.device, mut.dtype
     B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
     if R == 0:
         raise ValueError("enum_run: empty root queue")
+    if roots_a is None:
+        roots_a = roots_x
     mut_t = mut.t().contiguous()            # mut_t[k, j] = mut[j, k]
     cols = torch.arange(m, device=dev)
     pd_cols = torch.arange(m + 1, device=dev)
-    one = torch.tensor(1.0, dtype=f32, device=dev)
-    zero = torch.tensor(0.0, dtype=f32, device=dev)
-    inf = torch.tensor(float("inf"), dtype=f32, device=dev)
+    one = torch.tensor(1.0, dtype=ft, device=dev)
+    zero = torch.tensor(0.0, dtype=ft, device=dev)
+    inf = torch.tensor(float("inf"), dtype=ft, device=dev)
     top = m - 1
 
     def make_fresh(ra, rpd):
         """Lane state from root rows: cs = cp0 - sum_f ra_f * mut_fix_f,
         summed in f order, as the kernel sums it."""
-        acc = torch.zeros((B, m), dtype=f32, device=dev)
+        acc = torch.zeros((B, m), dtype=ft, device=dev)
         for f in range(nfix):
             acc = acc + ra[:, f:f + 1] * mut_fix[:, f][None, :]
         cs = cp0[None, :] - acc
@@ -422,31 +482,37 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         if is_svp:
             x0 = torch.where(rpd == 0, torch.clamp(x0, min=0.0), x0)
         d0 = torch.where(c0 >= x0, one, -one)
-        x = torch.zeros((B, m), dtype=f32, device=dev)
+        x = torch.zeros((B, m), dtype=ft, device=dev)
         x[:, top] = x0
-        dx = torch.ones((B, m), dtype=f32, device=dev)
+        dx = torch.ones((B, m), dtype=ft, device=dev)
         dx[:, top] = d0
         ddx = dx.clone()
-        center = torch.zeros((B, m), dtype=f32, device=dev)
+        center = torch.zeros((B, m), dtype=ft, device=dev)
         center[:, top] = c0
-        partdist = torch.zeros((B, m + 1), dtype=f32, device=dev)
+        partdist = torch.zeros((B, m + 1), dtype=ft, device=dev)
         partdist[:, top] = rpd
         return x, dx, ddx, center, partdist, cs
 
     idx0 = torch.arange(B, device=dev)
     take = torch.clamp(idx0, 0, R - 1)
-    rx0, rpd0 = roots_x[take], roots_pd[take]
-    A = torch.tensor(float(A0), dtype=f32, device=dev)
+    rx0, ra0, rpd0 = roots_x[take], roots_a[take], roots_pd[take]
+    A = torch.tensor(float(A0), dtype=ft, device=dev)
     active = (idx0 < R) & torch.isfinite(rpd0) & (rpd0 <= A)
     x, dx, ddx, center, partdist, cs = make_fresh(
-        rx0, torch.where(active, rpd0, zero))
+        ra0, torch.where(active, rpd0, zero))
     k = torch.full((B,), top, dtype=torch.int64, device=dev)
     lane_root = rx0.clone()
-    best_dist = torch.full((B,), float("inf"), dtype=f32, device=dev)
-    best_dev = torch.zeros((B, m), dtype=f32, device=dev)
-    best_root = torch.zeros((B, nfix), dtype=f32, device=dev)
+    best_dist = torch.full((B,), float("inf"), dtype=ft, device=dev)
+    best_dev = torch.zeros((B, m), dtype=ft, device=dev)
+    best_root = torch.zeros((B, nfix), dtype=ft, device=dev)
     sol_count = torch.zeros(B, dtype=torch.int64, device=dev)
     nodes = torch.zeros(m, dtype=torch.int64, device=dev)
+    if findsubsols:
+        # the reference's initial records: r_kk (evaluator.h:36-56)
+        subsol_dist = rdiag.clone()
+        subsol_vec = torch.zeros((m, m), dtype=ft, device=dev)
+        subsol_root = torch.zeros((m, nfix), dtype=ft, device=dev)
+        upper = cols[None, :] >= cols[:, None]      # row = level
     cursor = torch.tensor(B, dtype=torch.int64, device=dev)
     cursor_host = B
     check_every = 1 if dev.type == "cpu" else 32
@@ -458,7 +524,7 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
             if not (bool(active.any()) or cursor_host < R):
                 break
         steps += 1
-        # ---- one lockstep step (tpu._make_step, primal) ----------------
+        # ---- one lockstep step (tpu._make_step) -------------------------
         kc = torch.clamp(k, 0, top)
         at = kc[:, None]
         xk = x.gather(1, at)[:, 0]
@@ -479,11 +545,28 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         if not count_mode:
             A = torch.minimum(A, torch.where(sol_found, newdist, inf).min())
         nodes.index_add_(0, kc, ok.long())
+        if findsubsols:
+            # per level, the lane with the smallest passing nonzero
+            # distance this step (x before the update), merged into the
+            # records where strictly smaller
+            improving = ok & (newdist > 0)
+            cand = torch.where((cols[None, :] == at) & improving[:, None],
+                               newdist[:, None], inf)
+            ss_dist = cand.min(dim=0).values
+            ss_lane = cand.argmin(dim=0)
+            upd = ss_dist < subsol_dist
+            subsol_dist = torch.where(upd, ss_dist, subsol_dist)
+            subsol_vec = torch.where(upd[:, None],
+                                     torch.where(upper, x[ss_lane], zero),
+                                     subsol_vec)
+            subsol_root = torch.where(upd[:, None], lane_root[ss_lane],
+                                      subsol_root)
 
         descend = ok & ~at_bottom
         below_k = cols[None, :] < kc[:, None]
+        wk = alpha if dual else xk
         cs = cs - torch.where(descend[:, None] & below_k,
-                              xk[:, None] * mut_t[kc], zero)
+                              wk[:, None] * mut_t[kc], zero)
         k_down = kc - 1
         c_new = cs.gather(1, torch.clamp(k_down, min=0)[:, None])[:, 0]
         x_new = _cround(c_new)
@@ -506,8 +589,11 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         atk = ks[:, None]
         asc = do_sib & fail
         xs = x.gather(1, atk)[:, 0]
+        # dual: restore the alpha subtracted at descend time (the center
+        # of level ks is unchanged since then)
+        ws = xs - center.gather(1, atk)[:, 0] if dual else xs
         cs = cs + torch.where(asc[:, None] & (cols[None, :] < atk),
-                              xs[:, None] * mut_t[ks], zero)
+                              ws[:, None] * mut_t[ks], zero)
         pds = partdist.gather(1, atk)[:, 0]
         dxs = dx.gather(1, atk)[:, 0]
         ddxs = ddx.gather(1, atk)[:, 0]
@@ -529,10 +615,10 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
             ridx = cursor + rank
             can = needv & (ridx < R)
             ridx_c = torch.clamp(ridx, 0, R - 1)
-            rx, rpd = roots_x[ridx_c], roots_pd[ridx_c]
+            rx, ra, rpd = roots_x[ridx_c], roots_a[ridx_c], roots_pd[ridx_c]
             live = can & torch.isfinite(rpd) & (rpd <= A)
             fx, fdx, fddx, fcenter, fpartdist, fcs = make_fresh(
-                rx, torch.where(live, rpd, zero))
+                ra, torch.where(live, rpd, zero))
             sel = can[:, None]
             x = torch.where(sel, fx, x)
             dx = torch.where(sel, fdx, dx)
@@ -547,7 +633,7 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
 
     K = min(B, _K_TOP)
     negd, idx = torch.topk(-best_dist, K)
-    return {
+    out = {
         "nodes": nodes,
         "best_dist": -negd,
         "best_dev": best_dev[idx],
@@ -557,6 +643,10 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         "cursor": cursor,
         "steps": steps,
     }
+    if findsubsols:
+        out.update(subsol_dist=subsol_dist, subsol_vec=subsol_vec,
+                   subsol_root=subsol_root)
+    return out
 
 
 def enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,

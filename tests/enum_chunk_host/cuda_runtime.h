@@ -17,7 +17,7 @@ extern dim3 threadIdx, blockIdx, blockDim;
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __launch_bounds__(n)
+#define __launch_bounds__(...)
 
 void __syncthreads();
 
@@ -26,6 +26,7 @@ void __syncthreads();
    the emulation checks by the call's source line */
 float emu_shfl(unsigned mask, float v, int src, int width, int line);
 int emu_shfl(unsigned mask, int v, int src, int width, int line);
+double emu_shfl(unsigned mask, double v, int src, int width, int line);
 #define __shfl_sync(mask, v, src, width) \
   emu_shfl(mask, v, src, width, __LINE__)
 
@@ -37,6 +38,11 @@ inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
 inline float __fsqrt_rn(float a) { return std::sqrt(a); }
+inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
 
 inline float __int_as_float(int i) {
   float f;
@@ -45,6 +51,16 @@ inline float __int_as_float(int i) {
 }
 inline int __float_as_int(float f) {
   int i;
+  std::memcpy(&i, &f, sizeof i);
+  return i;
+}
+inline double __longlong_as_double(long long i) {
+  double f;
+  std::memcpy(&f, &i, sizeof f);
+  return f;
+}
+inline long long __double_as_longlong(double f) {
+  long long i;
   std::memcpy(&i, &f, sizeof i);
   return i;
 }
@@ -71,3 +87,10 @@ inline int atomicExch(int *p, int v) {
   *p = v;
   return old;
 }
+inline int atomicCAS(int *p, int cmp, int v) {
+  const int old = *p;
+  if (old == cmp) *p = v;
+  return old;
+}
+/* one OS thread: every store is visible to the next fiber that runs */
+inline void __threadfence() {}

@@ -6,8 +6,9 @@
    (a barrier of its shuffle segment, with warp-synchronous semantics:
    each thread of the segment deposits its value, then each reads its
    source's). So walkers of different blocks interleave at every shuffle.
-   Control flow that is not uniform within a walker is reported, not
-   run: a shuffle whose partners called it from different source lines,
+   A walker waiting for a sub-solution record's lock (spin_pause) lets
+   the others run, and counts as no progress. Control flow that is not
+   uniform within a walker is reported, not run: a shuffle whose partners called it from different source lines,
    and a thread that leaves while the rest of its segment waits in a
    shuffle (a deadlock). x86-64 only (a small hand-written context
    switch).
@@ -67,7 +68,7 @@ struct Barrier {
 };
 
 struct Segment : Barrier {
-  uint32_t val[32];
+  uint64_t val[32];
   int line[32];
 };
 
@@ -86,7 +87,7 @@ struct Launch {
   std::vector<Fiber> fibers;
   std::vector<Barrier> blocks;
   std::vector<Segment> segments;
-  std::vector<std::vector<float>> smem;
+  std::vector<std::vector<double>> smem;
   void *sched_sp = nullptr;
   Fiber *cur = nullptr;
   bool progress = false;
@@ -122,7 +123,7 @@ void wait(Barrier &b, int n) {
 
 template <typename T>
 T shuffle(unsigned mask, T v, int src, int w, int line) {
-  static_assert(sizeof(T) == 4, "32-bit shuffles only");
+  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
   const unsigned tid = threadIdx.x, block = blockIdx.x;
   if (w != width) fail(kBadShuffle);
   const unsigned base = tid & 31 & ~unsigned(width - 1);
@@ -130,20 +131,21 @@ T shuffle(unsigned mask, T v, int src, int w, int line) {
       width == 32 ? 0xffffffffu : ((1u << width) - 1u) << base;
   if (mask != want) fail(kBadShuffle);
   Segment &s = L->segments[block * (blockDim.x / width) + tid / width];
-  std::memcpy(&s.val[tid % width], &v, 4);
+  std::memcpy(&s.val[tid % width], &v, sizeof(T));
   s.line[tid % width] = line;
   wait(s, width);
   for (int i = 0; i < width; i++)
     if (s.line[i] != line) fail(kDivergent);
   T r;
-  std::memcpy(&r, &s.val[src & (width - 1)], 4);
+  std::memcpy(&r, &s.val[src & (width - 1)], sizeof(T));
   wait(s, width);  /* nobody deposits the next value before all have read */
   return r;
 }
 
 }  // namespace
 
-float *dynamic_smem() { return L->smem[blockIdx.x].data(); }
+void *dynamic_smem() { return L->smem[blockIdx.x].data(); }
+void spin_pause() { yield(); }
 void __syncthreads() { wait(L->blocks[blockIdx.x], (int)blockDim.x); }
 float emu_shfl(unsigned mask, float v, int src, int width, int line) {
   return shuffle(mask, v, src, width, line);
@@ -151,18 +153,22 @@ float emu_shfl(unsigned mask, float v, int src, int width, int line) {
 int emu_shfl(unsigned mask, int v, int src, int width, int line) {
   return shuffle(mask, v, src, width, line);
 }
+double emu_shfl(unsigned mask, double v, int src, int width, int line) {
+  return shuffle(mask, v, src, width, line);
+}
 
 /* the walker width this build was compiled with */
 extern "C" int enum_chunk_emulated_width() { return width; }
 
-/* One emulated launch of the instance for P.m over `grid` blocks of
-   `threads` threads; P.walkers must be grid * threads / ENUM_WIDTH, as
+/* One emulated launch of the instance for P (its height, problem count,
+   element type and walk) over `grid` blocks of `threads` threads; P.walkers must be grid * threads / ENUM_WIDTH, as
    the CUDA launcher requires. Returns 0, or one of the codes above. */
 extern "C" int enum_chunk_emulate(const EnumParams *hp, int grid,
                                   int threads) {
   Launch l;
   l.P = *hp;
-  l.fn = enum_instance(l.P.m, l.P.G_real);
+  l.fn = enum_instance(l.P.m, l.P.G_real, l.P.dbl,
+                       l.P.dual || l.P.findsubsols);
   if (!l.fn || grid < 1 || threads < width ||
       threads % 32 || threads > 1024 || l.P.G_real < 1 ||
       l.P.G_real > l.P.G || l.P.walkers != grid * (threads / width))
@@ -170,8 +176,9 @@ extern "C" int enum_chunk_emulate(const EnumParams *hp, int grid,
   blockDim.x = threads;
   l.blocks.resize(grid);
   l.segments.resize((size_t)grid * (threads / width));
-  l.smem.assign(grid, std::vector<float>(
-                          enum_smem_bytes(l.P.m, l.P.G_real) / 4 + 1));
+  l.smem.assign(grid, std::vector<double>(
+                          enum_smem_bytes(l.P.m, l.P.G_real,
+                                          l.P.dbl ? 8 : 4) / 8 + 1));
   l.fibers.resize((size_t)grid * threads);
   for (int b = 0; b < grid; b++)
     for (int t = 0; t < threads; t++) {

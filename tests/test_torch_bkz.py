@@ -23,6 +23,7 @@ from fplll_tpu.algs.bkz_param import strategy_full_path
 from fplll_tpu_torch.algs.bkz import BKZReduction
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.interop import basis_from_rows, strategies_from_json
+from jax_reference import jax_native_cores  # noqa: F401 (autouse)
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
 torch.set_num_threads(2)

@@ -57,7 +57,7 @@ def packed(mut, rdiag, prune, A, device, root_factor=16):
     enum = DeviceEnumerator(batch=1024, target_root_factor=root_factor,
                             device=device)
     enum.nodes = np.zeros(d, dtype=np.int64)
-    rx, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d), A, d,
+    rx, _, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d), A, d,
                                       True)
     pack = enum._pack(mut, rdiag, prune, np.zeros(d), d, rx, rpd, m_real)
     pack["A0"] = A * enum.bound_slack
@@ -181,3 +181,66 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(card):
     bad = dict(pack, mut=pack["mut"].t())
     with pytest.raises(ValueError, match="mut"):
         kernels.enum_run(**bad, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the f64, dual and sub-solution instances
+# ---------------------------------------------------------------------------
+EXT_FORMS = [(torch.float64, False, False), (torch.float32, True, False),
+             (torch.float64, True, False), (torch.float32, False, True),
+             (torch.float64, False, True), (torch.float32, True, True),
+             (torch.float64, True, True)]
+
+
+def ext_packed(d, seed, dtype, dual, device, radius=1.3):
+    """The window at `radius` (primal), or its dual tree at `radius` times
+    the longest 1/r_ii, packed as DeviceEnumerator packs it in `dtype`
+    (the roots' alpha values ride along for dual)."""
+    mut, rdiag, prune, A = window(d, seed, radius=radius)
+    if dual:
+        mut = np.triu(-(mut.T)[::-1, ::-1], 1)
+        rdiag = (1.0 / rdiag)[::-1].copy()
+        A = 1.00001 * float(rdiag.max()) * radius
+    enum = DeviceEnumerator(batch=1024, target_root_factor=16, device=device,
+                            dtype=dtype)
+    enum.nodes = np.zeros(d, dtype=np.int64)
+    rx, ra, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d), A,
+                                          d, True, dual=dual)
+    pack = enum._pack(mut, rdiag, prune, np.zeros(d), d, rx, rpd, m_real,
+                      ra if dual else None)
+    pack["A0"] = A * enum.bound_slack
+    return pack
+
+
+@pytest.mark.parametrize("dtype,dual,findsubsols", EXT_FORMS,
+                         ids=[kernels._form(*f) for f in EXT_FORMS])
+def test_extended_instances_match_plain(card, dtype, dual, findsubsols):
+    """Count mode: per-level node counts, the solution count and the
+    sub-solution distances equal the plain version's exactly, at the
+    persistent grid and at one block. Search mode: the same best
+    distance."""
+    pack = ext_packed(30, 1, dtype, dual, card)
+    mr = pack["m_real"]
+    plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+    form = kernels._form(dtype, dual, findsubsols)
+    for count_mode in (True, False):
+        kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
+                  max_steps=1 << 30, dual=dual, findsubsols=findsubsols)
+        launches = kernels.LAUNCHES[form]
+        k = kernels.enum_run(**pack, **kw)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES[form] == launches + 1
+        p = kernels.enum_run_plain(**plain_args, **kw)
+        assert float(k["best_dist"][0]) == float(p["best_dist"][0])
+        assert math.isfinite(float(k["best_dist"][0]))
+        if not count_mode:
+            continue
+        runs = [k, kernels.enum_run(**pack, **kw, grid=1)]
+        for r in runs:
+            np.testing.assert_array_equal(r["nodes"].cpu().numpy()[:mr],
+                                          p["nodes"].cpu().numpy()[:mr])
+            assert int(r["sol_count"]) == int(p["sol_count"]) > 0
+            if findsubsols:
+                np.testing.assert_array_equal(
+                    r["subsol_dist"].cpu().numpy()[:mr],
+                    p["subsol_dist"].cpu().numpy()[:mr])

@@ -20,6 +20,7 @@ from fplll_tpu.jaxsetup import jnp
 from fplll_tpu_torch.enum import device as tdev
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.enum.evaluator import FastEvaluator
+from jax_reference import jax_native_cores  # noqa: F401 (autouse)
 from test_enum import exact_norm, setup
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
@@ -134,10 +135,18 @@ def test_facade_device_backend_matches_jax(monkeypatch):
 
 
 def test_taller_tree_than_the_kernel_raises():
-    d = 24
-    _, mut, rdiag, _, A = window(d, 1, 1.0)
-    et = tdev.DeviceEnumerator(batch=128, max_device_levels=8,
-                               target_root_factor=1, device="cpu")
-    et._gen_roots = lambda *a, **k: (np.zeros((1, 0)), np.zeros(1), d)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        et.enumerate(mut, rdiag, None, np.zeros(d), A, True, FastEvaluator())
+    """The kernel holds at most MAX_LEVELS levels: its wrapper refuses a
+    taller tree. DeviceEnumerator never hands it one: a tree taller than
+    max_device_levels goes through the chunked deep-tree search
+    (tests/test_torch_enum_f64.py)."""
+    m, nfix, R = kernels.MAX_LEVELS + 8, 8, 16
+
+    def z(*shape):
+        return torch.zeros(shape)
+
+    with pytest.raises(ValueError, match="tree height"):
+        kernels._prepare(z(1, m, m), z(1, m), z(1, m), z(1, m, nfix),
+                         z(1, m), z(1, R, nfix), z(1, R), z(1),
+                         torch.full((1,), m, dtype=torch.int32), G_real=1,
+                         walkers=8, is_svp=True, count_mode=True,
+                         max_steps=1 << 20)

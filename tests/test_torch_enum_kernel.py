@@ -26,6 +26,7 @@ from fplll_tpu.enum.tpu import TPUEnumerator, _enum_run
 from fplll_tpu.jaxsetup import jnp
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.native import native_enumerate
+from jax_reference import jax_native_cores  # noqa: F401 (autouse)
 from test_pallas_parity import build, linear_pruning, run_pallas
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
