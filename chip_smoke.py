@@ -25,7 +25,13 @@ Phases (each one fails the run if it fails):
      each answer certified by the other implementation;
   5. proved SVP (d = 56), fast and proved CVP, dual SVP and sub-solutions
      (d = 50) on BKZ-20-reduced gen_intrel bases through the port's
-     public functions, each against the same call host-only.
+     public functions, each against the same call host-only;
+  6. the user surfaces: `latticegen r d 10d` into `fplll -a svp` and
+     `-a cvp` (in this process and, for the SVP, as a pipeline of two
+     processes), `fplll -a pru` with the pruner's gradient on the card,
+     on CPU tensors and by the host's numerical scheme, the fpylll
+     veneer's SVP, Pruning.run and a pruned Enumeration, and the device
+     GSO at d = 400 and 800; each answer certified by the host route.
 
 Phase 2 also holds the f64, dual and sub-solution forms of the kernel
 against the plain version.
@@ -48,6 +54,7 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 H100_F32_FLOPS = 67e12       # non-tensor f32 peak, H100 SXM data sheet
 H100_F64_FLOPS = 34e12       # non-tensor f64 peak, H100 SXM data sheet
+H100_F64_TC_FLOPS = 67e12    # f64 tensor-core peak, H100 SXM data sheet
 H100_HBM_BYTES = 3.35e12     # HBM3 rate, H100 SXM data sheet
 CROSSOVER = 2_000_000        # estimated nodes; windows above it go to the card
 # recorded times of the kernel before the walker redesign, one thread
@@ -1226,6 +1233,570 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
 
 
 # ---------------------------------------------------------------------------
+# phase 6: the user surfaces on the card
+# ---------------------------------------------------------------------------
+# `latticegen -randseed 1 r 42 420` piped into `fplll -a svp`, which reduces
+# with LLL only: the facade estimates the proved tree at 1.7e8 nodes from
+# the shortest basis vector, above the 2M crossover, and the host C core
+# certifies it in about a second (1.3e7 nodes once the radius falls)
+CLI_SVP = (42, 1)
+# `fplll -a cvp` (the proved method) on `latticegen -randseed 1 r 40 400`,
+# to a lattice vector plus integer offsets of expected squared length 1.1
+# times the Gaussian heuristic: the fast method's host tree is 1.1e7 nodes
+CLI_CVP = (40, 1)
+# `fplll -a pru -pruend 40` on a BKZ-20-reduced gen_intrel(60, 600) basis:
+# d = 20, where the analytic gradient applies
+PRU_BASIS, PRU_END = (60, 5), 40
+# the veneer's Pruning.run: preprocessing cost and target probability that
+# leave the pruned tree at the Gaussian heuristic (VENEER_RADIUS times it)
+# above the 2M crossover: 1.15e7 nodes estimated, 1.07e7 in the C core
+VENEER_PREPROC, VENEER_TARGET, VENEER_RADIUS = 1e10, 0.9, 1.0
+GSO_DIMS = (400, 800)
+GSO_RTOL = 1e-10             # device GSO's r against LAPACK's, of max |r|
+# its mu against LAPACK's, of max |mu|: on these ill-conditioned Grams two
+# f64 orders of the factorization part by 3.1e-10 (d = 400) and 1.1e-9
+# (d = 800) on an H100
+GSO_MU_RTOL = 1e-8
+# max |mu diag(r) mu^T - G| / max |G|, which the condition does not enter:
+# 1.3e-15 and 2.2e-15 on an H100, where an f32 Cholesky would sit near
+# f32's unit roundoff (6e-8) and a mu off by a part in 1000 near 1e-3
+GSO_BACKWARD_TOL = 1e-12
+PRU_RTOL = 1e-5              # the card's prune against the same on the CPU
+# norm-relative tolerance of one d = 30 gradient, card against CPU tensors,
+# per metric: about 100 times the 1.17e-11 and 9.4e-13 measured on an H100
+# (the 1e-5 and 1e-11 of tests/test_torch_pruner.py hold the port against
+# jaxgrad, whose XLA contracts multiply-adds)
+GRAD30_TOL = {"probability": 1e-9, "expected solutions": 1e-10}
+
+
+def run_cli(mod, argv, text=""):
+    """main(argv) of one of the port's CLI modules in this process, with
+    stdin and stdout swapped: (exit code, stdout)."""
+    import contextlib
+    import io
+
+    saved = sys.stdin
+    sys.stdin = io.StringIO(text)
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = mod.main(list(argv))
+    finally:
+        sys.stdin = saved
+    return rc, out.getvalue()
+
+
+def pipeline(cmd: str, timeout: float) -> str:
+    """stdout of a shell pipeline of the port's CLIs, run from the repo
+    root in a process group of its own that is killed if it outlives the
+    call."""
+    import signal
+
+    proc = subprocess.Popen(["bash", "-c", "set -o pipefail; " + cmd],
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    assert proc.returncode == 0, err[-2000:]
+    return out
+
+
+class GradientSpy:
+    """Counts and times the pruner's analytic gradients (calls of
+    pruner/torchgrad.gradient that computed one, not those it declines for
+    a full-length vector; each ends in a copy to the host, so its wall is
+    the device's) by the device each ran on."""
+
+    def __enter__(self):
+        from fplll_tpu_torch.pruner import torchgrad
+        from fplll_tpu_torch.torchsetup import resolve_device
+
+        self.calls = []
+        self._orig = orig = torchgrad.gradient
+        spy = self
+
+        def gradient(pruner, b, device=None):
+            dev = resolve_device(device).type
+            t0 = time.perf_counter()
+            g = orig(pruner, b, device=device)
+            if g is not None:
+                spy.calls.append((dev, time.perf_counter() - t0))
+            return g
+
+        torchgrad.gradient = gradient
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.pruner import torchgrad
+        torchgrad.gradient = self._orig
+        return False
+
+    def on(self, dev: str) -> list:
+        return [s for d, s in self.calls if d == dev]
+
+
+def median_ms(secs) -> float | None:
+    import numpy as np
+    return float(np.median(secs)) * 1e3 if len(secs) else None
+
+
+def gradient_flops(d: int, rows: int) -> float:
+    """f64 operations of one analytic gradient: the batched recurrence
+    (per row and step, d + 1 shifts and d + 1 Horner multiply-adds, one
+    scaled abscissa), about twice as many in the backward pass, and the
+    cost sum (about 10 per level of 2d)."""
+    fwd = rows * d * (3 * (d + 1) + 1) + 20 * d
+    return 3.0 * fwd
+
+
+def gradient_kernels(fn) -> int | None:
+    """CUDA kernels one call of fn launches, from torch.profiler's device
+    trace; None when the profiler records no device activity or cannot
+    trace the card (untried there: CUPTI may be refused)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if ProfilerActivity.CUDA not in torch.profiler.supported_activities():
+        return None
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        log(f"torch.profiler could not trace the card: {e}")
+        return None
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA)
+    return n or None
+
+
+def gradient_profile(d: int, metric: int, device=None):
+    """The profile of tests/test_pruner.py's gradient test at n = 2d
+    (r_i = 1.012^(-4i), radius 1.1 GH), b = linspace(0.3, 1, d) enforced."""
+    import numpy as np
+    from fplll_tpu_torch.defs import PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+    from fplll_tpu_torch.pruner.pruner import Pruner
+
+    n = 2 * d
+    r = [math.exp(-4 * math.log(1.012) * i) for i in range(n)]
+    gh = math.exp(sum(math.log(x) for x in r) / n - 2 * (
+        (n / 2) * math.log(math.pi) - math.lgamma(n / 2 + 1)) / n)
+    target = 0.5 if metric == PRUNER_METRIC_PROBABILITY_OF_SHORTEST else 1.0
+    p = Pruner(1.1 * gh, 1e10, r, target, metric, device=device)
+    b = np.linspace(0.3, 1.0, d)
+    p.enforce(b)
+    return p, b
+
+
+def surfaces_cli(device, svp=CLI_SVP, cvp=CLI_CVP, pipe=True) -> dict:
+    """`latticegen r d 10d` into `fplll -a svp` and `fplll -a cvp` in this
+    process, each certified by the port's host route on the same
+    LLL-reduced basis (every tree on the C core), and the same SVP through
+    a subprocess pipeline of the two CLIs."""
+    import random
+
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.algs.svpcvp import closest_vector, shortest_vector
+    from fplll_tpu_torch.algs.wrapper import lll_reduction
+    from fplll_tpu_torch.cli import latticegen
+    from fplll_tpu_torch.cli import main as cli
+    from fplll_tpu_torch.defs import SVPM_PROVED
+    from fplll_tpu_torch.ops.intmat import parse_matrix, parse_vector
+
+    out = {}
+    d, seed = svp
+    gen_argv = ["-randseed", str(seed), "r", str(d), str(10 * d)]
+    _, text = run_cli(latticegen, gen_argv)
+    b = parse_matrix(text)
+    lll_reduction(b)
+    est = svp_tree_estimate(b)
+    with PathSpy() as card:
+        t0 = time.perf_counter()
+        rc, printed = run_cli(cli, ["-a", "svp"], text)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    norm_card = sum(v * v for v in parse_vector(printed.strip()))
+    with PathSpy() as host:
+        t0 = time.perf_counter()
+        st, x = shortest_vector(b.copy(), SVPM_PROVED, backend="cpu")
+        host_s = time.perf_counter() - t0
+    norm_host = sum(v * v for v in lattice_point(b, x))
+    rec = {"case": f"fplll -a svp, latticegen r {d} {10 * d}, seed {seed}",
+           "tree_estimate": est, "card": card.record(card_s),
+           "host": host.record(host_s), "norm_card": norm_card,
+           "norm_host": norm_host}
+    log("surfaces " + json.dumps(rec))
+    assert rc == st == 0 and norm_card == norm_host > 0, rec
+    assert sum(card.launches.values()) > 0, "fplll -a svp launched nothing"
+    assert not host.launches, "the host certificate launched"
+    out["svp"] = rec
+
+    if pipe:
+        py = sys.executable
+        t0 = time.perf_counter()
+        piped = pipeline(f"{py} -m fplll_tpu_torch.cli.latticegen "
+                         f"{' '.join(gen_argv)} | {py} -m "
+                         "fplll_tpu_torch.cli.main -a svp", timeout=300)
+        out["pipeline"] = {"wall_s": time.perf_counter() - t0,
+                           "same_stdout": piped == printed}
+        log("surfaces " + json.dumps({"case": "latticegen | fplll -a svp, "
+                                      "two processes", **out["pipeline"]}))
+        assert piped == printed, (piped, printed)
+
+    d, seed = cvp
+    _, text = run_cli(latticegen, ["-randseed", str(seed), "r", str(d),
+                                   str(10 * d)])
+    b = parse_matrix(text)
+    lll_reduction(b)
+    mut, rdiag, normexp = gso_of(b)
+    gh = math.ldexp(math.exp(float(np.mean(np.log(rdiag))) + 2 * math.lgamma(
+        d / 2 + 1) / d) / math.pi, normexp)
+    R = max(1, round(math.sqrt(3 * 1.1 * gh / b.ncols)))
+    rng = random.Random(seed)
+    v = lattice_point(b, [rng.randint(-3, 3) for _ in range(d)])
+    target = [c + rng.randint(-R, R) for c in v]
+    with PathSpy() as card:
+        t0 = time.perf_counter()
+        rc, printed = run_cli(cli, ["-a", "cvp"], text + "\n[" + " ".join(
+            str(t) for t in target) + "]\n")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    dist_card = sum((t - c) ** 2 for t, c in zip(
+        target, parse_vector(printed.strip())))
+    # the host certificate takes the fast method: the proved one runs its
+    # resets on the Python DFS when host-only, far too slow at this size
+    with PathSpy() as host:
+        t0 = time.perf_counter()
+        st, x = closest_vector(b.copy(), target, method=0, backend="cpu")
+        host_s = time.perf_counter() - t0
+    dist_host = sum((t - c) ** 2 for t, c in zip(target, lattice_point(b, x)))
+    rec = {"case": f"fplll -a cvp, latticegen r {d} {10 * d}, seed {seed}",
+           "card": card.record(card_s), "host_fast_method": host.record(
+               host_s), "dist_card": dist_card, "dist_host": dist_host,
+           "offset_bound": R, "gaussian_heuristic": gh}
+    log("surfaces " + json.dumps(rec))
+    assert rc == st == 0 and dist_card == dist_host, rec
+    assert sum(card.launches.values()) > 0, "fplll -a cvp launched nothing"
+    assert not host.launches, "the host certificate launched"
+    out["cvp"] = rec
+    return out
+
+
+def surfaces_pruner(device, basis=PRU_BASIS, end=PRU_END) -> dict:
+    """`fplll -a pru -pruend <end>` on the card, on CPU tensors and with the
+    host numerical scheme; one d = 30 gradient per metric on the card and
+    on CPU tensors."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.cli import main as cli
+    from fplll_tpu_torch.defs import (PRUNER_METRIC_EXPECTED_SOLUTIONS,
+                                      PRUNER_METRIC_PROBABILITY_OF_SHORTEST)
+    from fplll_tpu_torch.ops.intmat import format_matrix
+    from fplll_tpu_torch.pruner import pruner as pruner_mod
+    from fplll_tpu_torch.pruner import torchgrad
+
+    text = format_matrix(intrel_basis(*basis))
+    results = []
+    orig_prune = pruner_mod.prune
+
+    def prune(*a, **k):
+        res = orig_prune(*a, **k)
+        p = pruner_mod.Pruner(*a[:6])      # run_pruner's positional call
+        results.append((res, p.repeated_enum_cost(res.coefficients)))
+        return res
+
+    runs = {}
+    pruner_mod.prune = prune
+    try:
+        for name, env in (("card", {}),
+                          ("cpu", {"FPLLL_TORCH_DEVICE": "cpu"}),
+                          ("numerical", {"FPLLL_TPU_PRUNER_JAXGRAD": "0"})):
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                with GradientSpy() as gs:
+                    t0 = time.perf_counter()
+                    rc, _ = run_cli(cli, ["-a", "pru", "-pruend", str(end)],
+                                    text)
+                    wall = time.perf_counter() - t0
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            res, cost = results[-1]
+            assert rc == 0
+            runs[name] = {"wall_s": wall, "gradient_calls": len(gs.calls),
+                          "on_card": len(gs.on("cuda")),
+                          "median_gradient_ms": median_ms(
+                              [s for _, s in gs.calls]),
+                          "repeated_cost": cost,
+                          "expectation": res.expectation,
+                          "coefficients": list(res.coefficients)}
+    finally:
+        pruner_mod.prune = orig_prune
+    c, h = runs["card"], runs["cpu"]
+    rec = {"case": f"fplll -a pru -pruend {end}, BKZ-20 gen_intrel"
+                   f"({basis[0]}, {10 * basis[0]}), seed {basis[1]}",
+           "runs": {k: {k2: v2 for k2, v2 in r.items() if k2 != "coefficients"}
+                    for k, r in runs.items()},
+           "cost_rel_diff": abs(c["repeated_cost"] - h["repeated_cost"]) /
+           h["repeated_cost"],
+           "expectation_rel_diff": abs(c["expectation"] - h["expectation"]) /
+           h["expectation"],
+           "coefficients_max_abs_diff": float(np.max(np.abs(
+               np.asarray(c["coefficients"]) - np.asarray(h["coefficients"]))))}
+    log("surfaces " + json.dumps(rec))
+    assert c["gradient_calls"] == c["on_card"] > 0, "no gradient on the card"
+    assert h["gradient_calls"] > 0 and h["on_card"] == 0
+    assert runs["numerical"]["gradient_calls"] == 0
+    assert rec["cost_rel_diff"] <= PRU_RTOL, rec
+    assert rec["expectation_rel_diff"] <= PRU_RTOL, rec
+
+    # one d = 30 gradient per metric: the card against CPU tensors, each
+    # timed (median of 5 calls after a warm one) and the card's kernels
+    # counted from the profiler's device trace
+    grad = {}
+    for metric, label in ((PRUNER_METRIC_PROBABILITY_OF_SHORTEST,
+                           "probability"),
+                          (PRUNER_METRIC_EXPECTED_SOLUTIONS,
+                           "expected solutions")):
+        p, b = gradient_profile(30, metric)
+        g = {}
+        for dev in ("cuda", "cpu"):
+            g[dev] = torchgrad.gradient(p, b, device=dev)
+            secs = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                torchgrad.gradient(p, b, device=dev)
+                secs.append(time.perf_counter() - t0)
+            g[dev + "_ms"] = median_ms(secs)
+        err = float(np.linalg.norm(g["cuda"] - g["cpu"]) /
+                    np.linalg.norm(g["cpu"]))
+        rows = 31 if metric == PRUNER_METRIC_PROBABILITY_OF_SHORTEST else 30
+        grad[label] = {"rel_diff": err, "card_ms": g["cuda_ms"],
+                       "cpu_ms": g["cpu_ms"],
+                       "card_kernels": gradient_kernels(
+                           lambda: torchgrad.gradient(p, b, device="cuda")),
+                       "flops": gradient_flops(30, rows)}
+    rec2 = {"case": "one d = 30 gradient, card against CPU tensors",
+            **grad}
+    log("surfaces " + json.dumps(rec2))
+    for label, gr in grad.items():
+        assert gr["rel_diff"] <= GRAD30_TOL[label], (label, gr)
+    torch.cuda.synchronize()
+    return {"pru": rec, "gradient_d30": grad}
+
+
+def surfaces_veneer(device, svp=CLI_SVP, norm=None,
+                    radius=VENEER_RADIUS) -> dict:
+    """fpylll's SVP.shortest_vector (proved) on the CLI's SVP basis (its
+    squared norm must be `norm`, the CLI's certified answer, where given),
+    Pruning.run on its GSO profile (d = n/2 <= 30: the gradient on the
+    card), and Enumeration.enumerate with those coefficients, a pruned f32
+    search at the Gaussian heuristic, certified by the C core."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch import fpylll
+    from fplll_tpu_torch.cli import latticegen
+    from fplll_tpu_torch.enum.device import gh_tree_estimate
+    from fplll_tpu_torch.native import native_enumerate
+    from fplll_tpu_torch.ops.intmat import parse_matrix
+
+    d, seed = svp
+    _, text = run_cli(latticegen, ["-randseed", str(seed), "r", str(d),
+                                   str(10 * d)])
+    A = fpylll.IntegerMatrix.from_matrix(parse_matrix(text))
+    with PathSpy() as sv:
+        t0 = time.perf_counter()
+        v = fpylll.SVP.shortest_vector(A, method="proved")
+        torch.cuda.synchronize()
+        svp_s = time.perf_counter() - t0
+    M = fpylll.GSO.Mat(A, update=True)
+    r = [M.get_r(i, i) for i in range(d)]
+    gh = radius * math.exp(sum(math.log(x) for x in r) / d - 2 * (
+        (d / 2) * math.log(math.pi) - math.lgamma(d / 2 + 1)) / d)
+    with GradientSpy() as gs:
+        t0 = time.perf_counter()
+        pp = fpylll.Pruning.run(gh, VENEER_PREPROC, r, VENEER_TARGET,
+                                flags=fpylll.Pruning.GRADIENT |
+                                fpylll.Pruning.NELDER_MEAD)
+        prune_s = time.perf_counter() - t0
+    mut, rdiag, normexp = gso_of(A)
+    prune = np.asarray(pp.coefficients)
+    est = gh_tree_estimate(rdiag, prune, math.ldexp(gh, -normexp))
+    enum = fpylll.Enumeration(M, nr_solutions=1)
+    with PathSpy() as en:
+        t0 = time.perf_counter()
+        dist, coords = enum.enumerate(0, d, gh, 0, pruning=pp.coefficients)[0]
+        torch.cuda.synchronize()
+        enum_s = time.perf_counter() - t0
+    exact = exact_norm(A, coords)
+    cert = native_enumerate(mut, rdiag, prune, None,
+                            math.ldexp(exact, -normexp) * 0.999, True, False,
+                            False)
+    rec = {"case": f"fpylll veneer on latticegen r {d} {10 * d}, seed {seed}",
+           "svp": {**sv.record(svp_s), "norm": sum(x * x for x in v)},
+           "pruning_run": {"wall_s": prune_s, "gradient_calls": len(gs.calls),
+                           "on_card": len(gs.on("cuda")),
+                           "median_gradient_ms": median_ms(gs.on("cuda")),
+                           "expectation": pp.expectation},
+           "enumeration": {**en.record(enum_s), "tree_estimate": est,
+                           "radius": gh, "dist": dist, "exact": exact,
+                           "c_core_inside_0.999": float(cert[1])}}
+    log("surfaces " + json.dumps(rec))
+    assert sum(sv.launches.values()) > 0, "SVP.shortest_vector launched nothing"
+    assert norm is None or rec["svp"]["norm"] == norm, (rec, norm)
+    assert gs.calls and len(gs.on("cuda")) == len(gs.calls), rec
+    assert sum(en.launches.values()) > 0, "Enumeration launched nothing"
+    assert abs(exact - dist) <= F32_DIST_TOL * exact, (exact, dist)
+    assert math.isinf(cert[1]), \
+        f"the C core found {cert[1]} inside the card's {exact}"
+    return rec
+
+
+def surfaces_gso(device, dims=GSO_DIMS) -> dict:
+    """full_gso at d >= device_gso_dim() on the Gram of an unreduced
+    gen_uniform basis with 10-bit entries (exact in f64): the card's
+    Cholesky route against LAPACK on the host (r and mu), and against G
+    itself (mu diag(r) mu^T)."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.nr.rng import RandGen
+    from fplll_tpu_torch.ops import blockgso
+    from fplll_tpu_torch.ops.gen import gen_uniform
+
+    recs = {}
+    for d in dims:
+        RandGen.init_with_seed(d)
+        bf = np.array([[float(x) for x in row] for row in gen_uniform(d, 10).a])
+        G = bf @ bf.T
+        assert d >= blockgso.device_gso_dim()
+        calls, orig = [], blockgso.device_chol_gso
+
+        def spy(*a, **k):
+            calls.append(a[0].shape[0])
+            return orig(*a, **k)
+
+        blockgso.device_chol_gso = spy
+        try:
+            card = [timed(lambda: blockgso.full_gso(G), torch.cuda.synchronize)
+                    for _ in range(3)]
+        finally:
+            blockgso.device_chol_gso = orig
+        host = [timed(lambda: blockgso.chol_gso(G), lambda: None)
+                for _ in range(3)]
+        Gt = torch.as_tensor(G, device=device)
+        chol_ms = []
+        for _ in range(3):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            torch.linalg.cholesky_ex(Gt)
+            ev1.record()
+            torch.cuda.synchronize()
+            chol_ms.append(ev0.elapsed_time(ev1))
+        (mu, r), (hmu, hr) = card[0][0], host[0][0]
+        scale = float(np.abs(hr).max())
+        # bound: d^3/3 operations, which cuSOLVER's potrf spends in its
+        # trailing GEMM updates, at the f64 tensor-core rate, or reading G
+        # and writing mu and r, whichever is longer
+        flop_s = d ** 3 / 3 / H100_F64_TC_FLOPS
+        byte_s = 3 * d * d * 8 / H100_HBM_BYTES
+        rec = {"route_calls": len(calls),
+               "card_ms": median_ms([s for _, s in card]),
+               "cholesky_kernel_ms": float(np.median(chol_ms)),
+               "host_ms": median_ms([s for _, s in host]),
+               "r_err": float(np.abs(r - hr).max()) / scale,
+               "mu_err": float(np.abs(mu - np.tril(hmu)).max() /
+                               np.abs(hmu).max()),
+               "backward_err": float(np.abs(
+                   mu @ (np.diagonal(r)[:, None] * mu.T) - G).max() /
+                   np.abs(G).max()),
+               "bound_ms": max(flop_s, byte_s) * 1e3,
+               "bound_by": "operations" if flop_s > byte_s else "bytes",
+               "bound_rate_flops": H100_F64_TC_FLOPS}
+        log("surfaces " + json.dumps({"case": f"device GSO d = {d}", **rec}))
+        assert rec["route_calls"] == 3, rec
+        assert rec["r_err"] <= GSO_RTOL and rec["mu_err"] <= GSO_MU_RTOL \
+            and rec["backward_err"] <= GSO_BACKWARD_TOL, rec
+        recs[d] = rec
+    return recs
+
+
+def phase_surfaces(device) -> dict:
+    """Phase 6: the CLIs, the pruner, the fpylll veneer and the device
+    GSO on the card, each answer certified by the port's host route in
+    this process; each step's wall logged."""
+    out, walls = {}, {}
+    steps = (("cli", lambda: surfaces_cli(device)),
+             ("pruner", lambda: surfaces_pruner(device)),
+             ("veneer", lambda: surfaces_veneer(
+                 device, norm=out["cli"]["svp"]["norm_card"])),
+             ("gso", lambda: surfaces_gso(device)))
+    for name, step in steps:
+        t0 = time.perf_counter()
+        out[name] = step()
+        walls[name] = time.perf_counter() - t0
+        log(f"phase 6 {name}: {walls[name]:.1f} s")
+    out["walls_s"] = walls
+    return out
+
+
+def surface_launches(rec) -> dict:
+    """Kernel launches per form on phase 6's path: the CLI's SVP and CVP
+    and the veneer's SVP and Enumeration."""
+    launches = {}
+    spies = [rec["cli"]["svp"]["card"], rec["cli"]["cvp"]["card"],
+             rec["veneer"]["svp"], rec["veneer"]["enumeration"]]
+    for spy in spies:
+        for form, n in spy["launches"].items():
+            launches[form] = launches.get(form, 0) + n
+    return launches
+
+
+def phase6_numbers(surf, surface_counts) -> dict:
+    """Phase 6's line: walls, launches per form, the CLI's and the veneer's
+    times, the prune runs, and the X5 (gradient) and X4 (device GSO)
+    numbers with their bounds."""
+    g30 = surf["pruner"]["gradient_d30"]
+    return {
+        "walls_s": surf["walls_s"],
+        "launches": surface_counts,
+        "svp": {k: surf["cli"]["svp"][k] for k in ("tree_estimate",
+                                                   "norm_card")},
+        "svp_card_s": surf["cli"]["svp"]["card"]["wall_s"],
+        "svp_host_s": surf["cli"]["svp"]["host"]["wall_s"],
+        "cvp_card_s": surf["cli"]["cvp"]["card"]["wall_s"],
+        "cvp_host_fast_s": surf["cli"]["cvp"]["host_fast_method"]["wall_s"],
+        "pipeline_s": surf["cli"].get("pipeline", {}).get("wall_s"),
+        "pru": surf["pruner"]["pru"]["runs"],
+        "pru_cost_rel_diff": surf["pruner"]["pru"]["cost_rel_diff"],
+        "veneer": {"svp_s": surf["veneer"]["svp"]["wall_s"],
+                   "pruning_run": surf["veneer"]["pruning_run"],
+                   "enumeration_s": surf["veneer"]["enumeration"]["wall_s"],
+                   "enumeration_tree_estimate":
+                       surf["veneer"]["enumeration"]["tree_estimate"]},
+        # bound: the f64 operations at the f64 rate, or reading b and ipv
+        # (3d doubles) and writing the gradient (d), whichever is longer
+        "X5_gradient": {
+            label: {**g, "bound_ms": max(g["flops"] / H100_F64_FLOPS,
+                                         4 * 30 * 8 / H100_HBM_BYTES) * 1e3,
+                    "bound_by": "operations" if g["flops"] / H100_F64_FLOPS
+                    > 4 * 30 * 8 / H100_HBM_BYTES else "bytes"}
+            for label, g in g30.items()},
+        "X4_device_gso": surf["gso"]}
+
+
+# ---------------------------------------------------------------------------
 # phase 1: the build's instances
 # ---------------------------------------------------------------------------
 # registers of the six f32 instances of BKZ-2.0, (M, SMEM) -> registers,
@@ -1304,11 +1875,11 @@ def phase_build() -> dict:
     return {"nvcc_s": build_s, "instances": len(inst)}
 
 
-def extended_entries(ext_recs, svp_recs) -> list:
+def extended_entries(ext_recs, svp_recs, surface_counts) -> list:
     """The `kernels` line's entry of each form of the proved solvers: its
     phase-2 numbers (count mode, and search mode where it ran) and its
-    launches on phase 5's path."""
-    launches = {}
+    launches on phase 5's and phase 6's paths."""
+    launches = dict(surface_counts)
     for r in svp_recs:
         for form, n in r["card"]["launches"].items():
             launches[form] = launches.get(form, 0) + n
@@ -1407,12 +1978,19 @@ def main() -> int:
     svp_recs = phase_svp_cvp(device)
     log(f"phase 5 done in {time.perf_counter() - t0:.1f} s")
 
+    # -- phase 6: the user surfaces ------------------------------------------
+    t0 = time.perf_counter()
+    surf = phase_surfaces(device)
+    log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
+    surface_counts = surface_launches(surf)
+
     grouped = next(f for f in forms if f["form"].startswith("grouped"))
     by_form = {"queue d56 count": timing["kernel_ms"],
                f"{grouped['form']} search": grouped["kernel_ms"]}
     log("recorded times of the one-thread-per-lane kernel (PERF.md "
         "section 6, not measured in this run): "
         + json.dumps(LANE_KERNEL_RECORDED_MS))
+    log(json.dumps({"phase6": phase6_numbers(surf, surface_counts)}))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "enum_chunk_kernel",
@@ -1423,8 +2001,11 @@ def main() -> int:
                            "fplll_tpu/enum/pallas_kernel.py:792",
                            "fplll_tpu/enum/pallas_kernel.py:925",
                            "fplll_tpu/enum/pallas_kernel.py:961"],
-        "launches": sum(main_rec["launches"].values()),
+        "launches": sum(main_rec["launches"].values()) +
+        surface_counts.get("single", 0) + surface_counts.get("grouped", 0),
         "launches_by_wrapper": main_rec["launches"],
+        "launches_phase6": {k: surface_counts.get(k, 0)
+                            for k in ("single", "grouped")},
         "max_abs_err": max_err,
         "ms": timing["kernel_ms"],
         "ms_by_form": by_form,
@@ -1443,7 +2024,7 @@ def main() -> int:
         "geometry": {k: timing[k] for k in (
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_root_walk")},
-    }] + extended_entries(ext_recs, svp_recs)}))
+    }] + extended_entries(ext_recs, svp_recs, surface_counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -6,11 +6,15 @@ CVP), with the enumeration hot path on a hand-written CUDA kernel for
 Hopper (``csrc/enum_chunk.cu``: f32 trees for BKZ windows, f64 trees for
 the proved solvers, the dual recurrence and per-level sub-solutions) and
 the host orchestration (exact-integer LLL, GSO, the native C cores)
-carried over unchanged. The pruner, the fpylll veneer and the CLIs are
-later slices of the port (ROADMAP.md).
+carried over unchanged. The pruner takes its analytic gradient from
+torch.autograd, and a full GSO recompute at d >= FPLLL_TPU_DEVICE_GSO_DIM
+runs as an f64 Cholesky on the device. The user surfaces are the CLIs
+(``python -m fplll_tpu_torch.cli.main``, ``.cli.latticegen``,
+``.cli.llldiff``) and the fpylll veneer (:mod:`fplll_tpu_torch.fpylll`).
 
 Entry points that may reach the device run on ``cuda`` unless the caller
-asks for the CPU (``device='cpu'`` or ``FPLLL_TORCH_DEVICE=cpu``), see
+asks for the CPU (``device='cpu'`` or ``FPLLL_TORCH_DEVICE=cpu``; the
+CLIs and the veneer follow the variable), see
 :mod:`fplll_tpu_torch.torchsetup`.
 """
 
@@ -33,6 +37,7 @@ from .algs.bkz_param import (BKZParam, PruningParams, Strategy,  # noqa: F401
                              load_strategies_json)
 from .algs.svpcvp import (closest_vector, shortest_vector,  # noqa: F401
                           shortest_vector_pruning)
+from .pruner.pruner import Pruner, prune, run_pruner, svp_probability  # noqa: F401
 from .threads import get_threads, set_threads  # noqa: F401
 from .torchsetup import resolve_device  # noqa: F401
 

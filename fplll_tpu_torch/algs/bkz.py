@@ -744,7 +744,7 @@ def bkz_reduction_f(b: IntMat, param: BKZParam, sel_ft: FloatType,
     if sel_ft in (FT_DOUBLE, FT_LONG_DOUBLE):
         gso_flags |= GSO_ROW_EXPO
     ctx = get_ctx(sel_ft, precision)
-    m_gso = MatGSO(b, u, u_inv, flags=gso_flags, ctx=ctx)
+    m_gso = MatGSO(b, u, u_inv, flags=gso_flags, ctx=ctx, device=device)
     lll_obj = LLLReduction(m_gso, lll_delta, LLL_DEF_ETA, LLL_DEFAULT)
     bkz_obj = BKZReduction(m_gso, lll_obj, param, device=device)
     bkz_obj.bkz()
@@ -774,7 +774,8 @@ def bkz_reduction(b: IntMat, param: BKZParam | int,
     if param.flags & BKZ_NO_LLL:
         zeros_last(b, u, None)
     else:
-        wrapper = Wrapper(b, u, None, lll_delta, LLL_DEF_ETA, LLL_DEFAULT)
+        wrapper = Wrapper(b, u, None, lll_delta, LLL_DEF_ETA, LLL_DEFAULT,
+                          device=device)
         if not wrapper.lll():
             return wrapper.status
     status = bkz_reduction_f(b, param, sel_ft, lll_delta, u, None, precision,

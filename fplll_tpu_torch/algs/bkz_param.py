@@ -35,11 +35,18 @@ class PruningParams:
 
     @staticmethod
     def LinearPruningParams(block_size: int, level: int) -> "PruningParams":
-        """Linear pruning (bkz_param.cpp:11-37). Its expectation comes
-        from the pruner, which the port has not taken over yet."""
-        raise NotImplementedError(
-            "LinearPruningParams needs the pruner, which the port has not "
-            "taken over yet (ROADMAP.md, pruner slice)")
+        """Linear pruning: flat 1.0 then linear descent over the last
+        `level` indices (bkz_param.cpp:11-37)."""
+        p = PruningParams()
+        start_descent = block_size - level
+        start_descent = min(max(start_descent, 1), block_size)
+        p.coefficients = [1.0] * block_size
+        for k in range(block_size - start_descent):
+            p.coefficients[start_descent + k] = float(block_size - k - 1) / block_size
+        p.gh_factor = 1.0
+        from ..pruner.pruner import svp_probability
+        p.expectation = svp_probability(p.coefficients)
+        return p
 
 
 @dataclass

@@ -84,10 +84,11 @@ class Wrapper:
 
     def __init__(self, b: IntMat, u: Optional[IntMat] = None,
                  u_inv: Optional[IntMat] = None, delta: float = LLL_DEF_DELTA,
-                 eta: float = LLL_DEF_ETA, flags: int = 0):
+                 eta: float = LLL_DEF_ETA, flags: int = 0, device=None):
         self.b, self.u, self.u_inv = b, u, u_inv
         self.delta, self.eta = delta, eta
         self.flags = flags
+        self.device = device      # of the GSO's blocked recompute (MatGSO)
         self.status = RED_SUCCESS
         self.last_early_red = 0
         self.n, self.d = b.ncols, b.nrows
@@ -118,7 +119,8 @@ class Wrapper:
             gso_flags |= GSO_ROW_EXPO
         if method != LM_PROVED and precision == 0:
             gso_flags |= GSO_OP_FORCE_LONG
-        m = MatGSO(self.b, self.u, self.u_inv, flags=gso_flags, ctx=ctx)
+        m = MatGSO(self.b, self.u, self.u_inv, flags=gso_flags, ctx=ctx,
+                   device=self.device)
         lll = LLLReduction(m, self.delta, self.eta, self.flags)
         lll.last_early_red = self.last_early_red
         lll.lll()

@@ -56,9 +56,13 @@ class MatGSOInterface:
     """Shared lazy-GSO state machine (reference: gso_interface.h:59)."""
 
     def __init__(self, d: int, flags: int, ctx=None,
-                 u: Optional[IntMat] = None, u_inv_t: Optional[IntMat] = None):
+                 u: Optional[IntMat] = None, u_inv_t: Optional[IntMat] = None,
+                 device=None):
         self.ctx = ctx if ctx is not None else F64Ctx()
         self.d = d
+        # where a blocked full recompute at d >= device_gso_dim() runs;
+        # resolved there (torchsetup.resolve_device), not here
+        self.device = device
         self.enable_int_gram = bool(flags & GSO_INT_GRAM)
         self.enable_row_expo = bool(flags & GSO_ROW_EXPO)
         self.row_op_force_long = bool(flags & GSO_OP_FORCE_LONG)
@@ -258,7 +262,7 @@ class MatGSOInterface:
         if G is None:
             return False
         from ..ops.blockgso import full_gso
-        out = full_gso(G)
+        out = full_gso(G, self.device)
         if out is None:
             return False
         mu, r = out
@@ -544,8 +548,8 @@ class MatGSO(MatGSOInterface):
 
     def __init__(self, b: IntMat, u: Optional[IntMat] = None,
                  u_inv_t: Optional[IntMat] = None, flags: int = GSO_DEFAULT,
-                 ctx=None):
-        super().__init__(b.nrows, flags, ctx, u, u_inv_t)
+                 ctx=None, device=None):
+        super().__init__(b.nrows, flags, ctx, u, u_inv_t, device)
         self.b = b
         d, cols = b.nrows, b.ncols
         self.n_known_cols = 0
@@ -913,10 +917,10 @@ class MatGSOGram(MatGSOInterface):
 
     def __init__(self, g: IntMat, u: Optional[IntMat] = None,
                  u_inv_t: Optional[IntMat] = None, flags: int = GSO_INT_GRAM,
-                 ctx=None):
+                 ctx=None, device=None):
         if not (flags & GSO_INT_GRAM) or (flags & ~GSO_INT_GRAM):
             raise ValueError("MatGSOGram supports exactly GSO_INT_GRAM")
-        super().__init__(g.nrows, GSO_INT_GRAM, ctx, u, u_inv_t)
+        super().__init__(g.nrows, GSO_INT_GRAM, ctx, u, u_inv_t, device)
         self.gmat = g
         self.g = g.a  # object ndarray, shared storage
         self.n_known_cols = g.ncols

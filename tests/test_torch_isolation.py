@@ -52,6 +52,11 @@ def _imports(path):
 def test_static_scan_finds_no_jax_or_jax_package_import():
     sources = _port_sources()
     assert len(sources) > 20, sources
+    rel = {os.path.relpath(p, PORT) for p in sources}
+    for must in ("cli/main.py", "cli/latticegen.py", "cli/llldiff.py",
+                 "pruner/pruner.py", "pruner/torchgrad.py",
+                 "utils/checkpoint.py", "algs/simulator.py", "fpylll.py"):
+        assert must in rel, must
     bad = [f"{os.path.relpath(p, ROOT)}:{line}: {mod}"
            for p in sources for line, mod in _imports(p) if _forbidden(mod)]
     assert not bad, "the port imports JAX or the JAX package:\n" + \
@@ -61,6 +66,7 @@ def test_static_scan_finds_no_jax_or_jax_package_import():
 _RUN = textwrap.dedent(r"""
     import json, sys
     import fplll_tpu_torch as ft
+    import fplll_tpu_torch.cli.main, fplll_tpu_torch.fpylll  # noqa: E401
     from fplll_tpu_torch.enum import kernels
 
     ft.RandGen.init_with_seed(3)
@@ -122,6 +128,101 @@ def test_entry_points_raise_without_card(no_card):
     b = ft.gen.gen_qary_bits(20, 10, 10)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ft.bkz_reduction(b, ft.BKZParam(10))
+
+
+def test_user_surfaces_raise_without_card(no_card, monkeypatch):
+    """The pruner with its analytic gradient (d <= 30), the GSO at
+    d >= device_gso_dim(), the fplll CLI's `-a svp` on a basis above the
+    device crossover, and the fpylll veneer's SVP all reach the device,
+    so they raise without a card when the CPU was not asked for."""
+    import io
+
+    import numpy as np
+
+    import fplll_tpu_torch as ft
+    from fplll_tpu_torch import fpylll
+    from fplll_tpu_torch.cli import main as cli_main
+    from fplll_tpu_torch.ops.blockgso import device_gso_dim, full_gso
+
+    gso = [1.05 ** -i for i in range(40)]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ft.prune(0.9 * gso[0], 1e4, gso, target=0.5,
+                 flags=ft.PRUNER_GRADIENT)
+    monkeypatch.setenv("FPLLL_TPU_DEVICE_GSO_DIM", "16")
+    assert device_gso_dim() == 16
+    G = np.eye(16) * 2.0 + 0.1
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        full_gso(G)
+    ft.RandGen.init_with_seed(2)
+    basis = ft.format_matrix(ft.gen.gen_intrel(40, 400))
+    monkeypatch.setattr("sys.stdin", io.StringIO(basis))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_main.main(["-a", "svp"])
+    fpylll.FPLLL.set_random_seed(3)
+    A = fpylll.IntegerMatrix.random(20, "qary", k=10, bits=15)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fpylll.SVP.shortest_vector(A)
+
+
+def test_host_only_queries_run_without_card(no_card, tmp_path, capsys):
+    """svp_probability, LinearPruningParams, the pruner's cost calls (and a
+    prune without the gradient), the simulator, full_gso below the
+    threshold, llldiff and latticegen touch no device: they run with no
+    card and no FPLLL_TORCH_DEVICE."""
+    import numpy as np
+
+    import fplll_tpu_torch as ft
+    from fplll_tpu_torch import fpylll
+    from fplll_tpu_torch.algs.simulator import simulate
+    from fplll_tpu_torch.cli import latticegen, llldiff
+    from fplll_tpu_torch.ops.blockgso import full_gso
+
+    lp = ft.PruningParams.LinearPruningParams(30, 10)
+    assert 0 < lp.expectation <= 1
+    assert ft.svp_probability(lp) == fpylll.Pruning.svp_probability(lp)
+    gso = [1.05 ** -i for i in range(30)]
+    p = ft.Pruner(0.9 * gso[0], 1e4, gso, 0.5)
+    assert p.single_enum_cost(lp.coefficients) > 0
+    assert 0 < p.measure_metric(lp.coefficients) <= 1
+    assert p.repeated_enum_cost(lp.coefficients) > 0
+    assert ft.prune(0.9 * gso[0], 1e4, gso, target=0.5, flags=0).coefficients
+    prof, tours = simulate([1.02 ** -(4 * i) for i in range(60)], 30)
+    assert len(prof) == 60 and tours >= 1
+    assert full_gso(np.eye(20) * 2.0 + 0.1) is not None
+    assert latticegen.main(["-randseed", "1", "u", "6", "8"]) == 0
+    path = tmp_path / "b.txt"
+    path.write_text(capsys.readouterr().out)
+    assert llldiff.main([str(path), str(path)]) == 0
+
+
+def test_gso_recompute_follows_the_device_argument(no_card, monkeypatch):
+    """With no card and no FPLLL_TORCH_DEVICE, at d >= device_gso_dim(),
+    bkz_reduction(device="cpu") hands its device to the GSO objects it
+    builds (the LLL wrapper's and BKZ's), so their blocked recompute runs
+    on the CPU; shortest_vector(backend="cpu") runs too (its GSO is
+    multiprecision, which the blocked route never takes)."""
+    import fplll_tpu_torch as ft
+    from fplll_tpu_torch.ops import blockgso
+
+    seen = []
+    real = blockgso.device_chol_gso
+
+    def spy(G, device=None):
+        seen.append(device)
+        return real(G, device)
+
+    monkeypatch.setattr(blockgso, "device_chol_gso", spy)
+    monkeypatch.setenv("FPLLL_TPU_DEVICE_GSO_DIM", "16")
+    ft.RandGen.init_with_seed(1)
+    b = ft.gen.gen_qary_bits(20, 10, 10)
+    assert ft.bkz_reduction(b, 10, device="cpu") == ft.RED_SUCCESS
+    assert seen and all(str(dev) == "cpu" for dev in seen), seen
+    seen.clear()
+    st, sol = ft.shortest_vector(b, backend="cpu")
+    assert st == ft.RED_SUCCESS and any(sol)
+    assert seen == []
+    m = ft.MatGSO(b.copy(), device="cpu")
+    assert m.update_gso() and [str(dev) for dev in seen] == ["cpu"]
 
 
 def test_cpu_is_taken_only_when_asked(no_card, monkeypatch):
