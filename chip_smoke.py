@@ -31,7 +31,16 @@ Phases (each one fails the run if it fails):
      processes), `fplll -a pru` with the pruner's gradient on the card,
      on CPU tensors and by the host's numerical scheme, the fpylll
      veneer's SVP, Pruning.run and a pruned Enumeration, and the device
-     GSO at d = 400 and 800; each answer certified by the host route.
+     GSO at d = 400 and 800; each answer certified by the host route;
+  7. the mesh (parallel/mesh.py) over four shards, one per card where
+     several are visible, else four streams of the one card: a count
+     tree with exactly the single card's counts, a falling-bound search,
+     a skewed tree on which drained shards steal, phase 5's proved SVP in
+     f64 through the public function, and phase 2's grouped trials one
+     per shard; each wall beside the same work on one card.
+
+    python3 chip_smoke.py --mesh       # phases 1 and 7 alone (several
+                                       # cards)
 
 Phase 2 also holds the f64, dual and sub-solution forms of the kernel
 against the plain version.
@@ -43,6 +52,7 @@ and the port (fplll_tpu_torch); builds everything from the checkout.
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -449,31 +459,29 @@ def shrink_check(device, name, d, seed, radius, spread=SHRINK_SPREAD_SEEDS):
     return rec, err
 
 
-def grouped_window_problem(device, dim=80, block=60, radius=GROUPED_RADIUS,
-                           trials=3):
+@functools.lru_cache(maxsize=None)
+def grouped_trials(device, dim=80, block=60, trials=3) -> dict:
     """The grouped trials of a block-60 window, built the way the C tour
     builds them (bkz_core.c:grouped_trials_c): the [0, block) window of
     the dim-80 q-ary basis after the 40 -> 50 warm-up; trial 0 as it
     stands, each other trial rerandomized below its first row (as
     rerandomize_block) and preprocessed by one BKZ tour at the block-60
     strategy's preprocessing block size; all with the block-60 strategy's
-    pruning; packed by the grouped window path's own packing (G_real = 3
-    problems padded to G = 4, height m = 64).
+    pruning. Returns their (mu^T, r), bases and pruning, and the union
+    best, which the C core finds first at the tour's radius (min(0.99 r_0,
+    1.1 GH)). Built once per process (phases 2 and 7 share it).
 
-    The radius is `radius` times the union best, which the C core finds
-    first at the tour's radius (min(0.99 r_0, 1.1 GH)). Under pruning,
-    which vector a search returns can depend on the order in which its
-    bound falls. The C core shows that here it cannot: a trial that still
-    finds the union best at 1 + 1e-5 times its norm finds it under every
-    bound a search can hold before, so the kernel and the plain version
-    must both return it."""
+    Under pruning, which vector a search returns can depend on the order
+    in which its bound falls. The C core shows that here it cannot: a
+    trial that still finds the union best at 1 + 1e-5 times its norm
+    finds it under every bound a search can hold before, so the kernel
+    and the plain version must both return it."""
     import random
     import numpy as np
     from fplll_tpu_torch.algs.bkz_param import load_strategies_json
     from fplll_tpu_torch.algs.wrapper import lll_reduction
     from fplll_tpu_torch.core.gso import MatGSO
     from fplll_tpu_torch.defs import GSO_INT_GRAM
-    from fplll_tpu_torch.enum.device import _pack_grouped
     from fplll_tpu_torch.native import native_enumerate
     from fplll_tpu_torch.nr.rng import RandGen
     from fplll_tpu_torch.ops.gen import gen_qary_bits
@@ -525,19 +533,32 @@ def grouped_window_problem(device, dim=80, block=60, radius=GROUPED_RADIUS,
                                         True, False, False)[1]) <=
                  best * (1 + 1e-9) for mu, r in zip(muts, rdiags)]
     assert any(certified), "the union best depends on the bound's order"
-    def pack(r):
-        return _pack_grouped(np.stack(muts), np.stack(rdiags),
-                             np.stack([prune] * trials),
-                             np.full(trials, best * r), device, 1024)
-
-    tensors, m_reals, _ = pack(radius)
-    return {"tensors": tensors, "m_reals": [int(v) for v in m_reals],
-            "pack": pack,
-            "bases": bases,
-            "normexp": exps[0], "union_best_c": best, "radius": best * radius,
+    return {"muts": np.stack(muts), "rdiags": np.stack(rdiags),
+            "prunes": np.stack([prune] * trials), "bases": bases,
+            "normexp": exps[0], "union_best_c": best,
             "trial_best_c": [float(f[1]) for f in found],
             "certified": certified, "native_ms": native_s * 1e3,
             "native_nodes": sum(float(f[4].sum()) for f in found)}
+
+
+def grouped_window_problem(device, dim=80, block=60, radius=GROUPED_RADIUS,
+                           trials=3):
+    """grouped_trials packed by the grouped window path's own packing
+    (G_real = 3 problems padded to G = 4, height m = 64) at `radius` times
+    the union best."""
+    import numpy as np
+    from fplll_tpu_torch.enum.device import _pack_grouped
+
+    gt = grouped_trials(device, dim, block, trials)
+
+    def pack(r):
+        return _pack_grouped(gt["muts"], gt["rdiags"], gt["prunes"],
+                             np.full(trials, gt["union_best_c"] * r), device,
+                             1024)
+
+    tensors, m_reals, _ = pack(radius)
+    return {**gt, "tensors": tensors, "m_reals": [int(v) for v in m_reals],
+            "pack": pack, "radius": gt["union_best_c"] * radius}
 
 
 def exact_norm(basis, coeffs) -> int:
@@ -1797,6 +1818,292 @@ def phase6_numbers(surf, surface_counts) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the mesh (parallel/mesh.py) on the card
+# ---------------------------------------------------------------------------
+# shards: one per card where more than one is visible (at most four), else
+# four sharing the one card, each on a stream of its own
+MESH_SHARDS = 4
+# roots per shard in a first sweep: the facade's batch_per_device at four
+# cards, max(128, 1024 // 4)
+MESH_BATCH = 256
+# the count tree: phase 2's dim-56 window at 0.85 of its shortest vector;
+# the falling-bound search: phase 2's shrink window (d = 40, 1.3 times)
+MESH_COUNT = (56, 4, 0.85)
+MESH_SEARCH = (40, 3, 1.3)
+# the skewed tree: tests/test_mesh.py's q-ary shape at d = 40 and 1.2
+# times its Gaussian-heuristic radius (5.7e7 nodes in the C core)
+MESH_SKEW = (40, 9, 1.2)
+
+
+def mesh_shards(shards=MESH_SHARDS) -> list:
+    import torch
+    n = torch.cuda.device_count()
+    if n > 1:
+        return [torch.device("cuda", i) for i in range(min(n, shards))]
+    return [torch.device("cuda", 0)] * shards
+
+
+def qary_window(d: int, seed: int, radius: float):
+    """An LLL-reduced gen_qary_bits(d, d/2, 10) basis, its normalized
+    (mu^T, r) and `radius` times its Gaussian-heuristic squared radius."""
+    import numpy as np
+    from fplll_tpu_torch.algs.wrapper import lll_reduction
+    from fplll_tpu_torch.core.gso import MatGSO
+    from fplll_tpu_torch.defs import GSO_INT_GRAM
+    from fplll_tpu_torch.nr.fctx import MPCtx
+    from fplll_tpu_torch.nr.rng import RandGen
+    from fplll_tpu_torch.ops import gen
+
+    RandGen.init_with_seed(seed)
+    b = gen.gen_qary_bits(d, d // 2, 10)
+    lll_reduction(b)
+    gso = MatGSO(b, flags=GSO_INT_GRAM, ctx=MPCtx(80))
+    gso.update_gso()
+    mut, rdiag, _ = gso.export_mu_r(0, d)
+    mut, rdiag = np.asarray(mut), np.asarray(rdiag)
+    log_ball = d / 2 * math.log(math.pi) - math.lgamma(d / 2 + 1)
+    gh2 = math.exp(float(np.mean(np.log(rdiag))) - 2.0 * log_ball / d)
+    return b, mut, rdiag, radius * gh2
+
+
+def overlapping(iv, distinct_cards: bool) -> bool:
+    """Whether two of the (start, end, card) intervals overlap (on two
+    different cards, with `distinct_cards`)."""
+    return any(a[0] < b[1] and b[0] < a[1] and
+               (not distinct_cards or a[2] != b[2])
+               for k, a in enumerate(iv) for b in iv[k + 1:])
+
+
+def sweep_stats(trace) -> dict:
+    """What mesh.TRACE recorded: sweeps and steals; per shard its launches
+    per form, its launch-to-collect times (median and largest, ms, host
+    clock) and its kernel ms (CUDA events); and, over the sweeps where two
+    or more shards launched, in how many two shards' event intervals
+    overlapped: `sweeps_with_launches_pending_together` (a shard's kernel
+    was queued before another's had ended: the host did not serialize the
+    launches; on one card the interval also holds the wait for SMs, so
+    this is not concurrency there), and `sweeps_with_cards_busy_together`
+    (two different cards ran their kernels at the same time; None where
+    the shards share one card)."""
+    import statistics
+    per, multi, pending, busy, steals = {}, 0, 0, 0, 0
+    cards = set()
+    for sweep in trace:
+        for r in sweep:
+            steals += r["stole"]
+            sh = per.setdefault(r["shard"], {"launches": {}, "l2c": [],
+                                             "kernel_ms": 0.0})
+            sh["launches"][r["form"]] = sh["launches"].get(r["form"], 0) + 1
+            sh["l2c"].append(r["launch_to_collect_ms"])
+            sh["kernel_ms"] += r.get("kernel_ms", 0.0)
+        iv = [(r["start_s"], r["end_s"], r["device"]) for r in sweep
+              if "start_s" in r]
+        cards.update(c for *_, c in iv)
+        if len(iv) > 1:
+            multi += 1
+            pending += overlapping(iv, False)
+            busy += overlapping(iv, True)
+    return {"sweeps": len(trace), "steals": steals,
+            "shards": {f"shard{i}": {
+                "launches": sh["launches"],
+                "launch_to_collect_ms_median": statistics.median(sh["l2c"]),
+                "launch_to_collect_ms_max": max(sh["l2c"]),
+                "kernel_ms_sum": sh["kernel_ms"]}
+                for i, sh in sorted(per.items())},
+            "sweeps_with_several_launching": multi,
+            "sweeps_with_launches_pending_together": pending,
+            "sweeps_with_cards_busy_together":
+                busy if len(cards) > 1 else None}
+
+
+def on_mesh(fn, forms):
+    """fn() with mesh.TRACE recording and the launch counts zeroed just
+    before it and read just after it, so that they are the mesh run's
+    own: (its result, wall s, sweep_stats with `launches` per form). The
+    run must have launched each of `forms`."""
+    from fplll_tpu_torch.enum import kernels
+    from fplll_tpu_torch.parallel import mesh as tmesh
+    kernels.reset_launch_counts()
+    tmesh.TRACE = []
+    try:
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        stats = sweep_stats(tmesh.TRACE)
+    finally:
+        tmesh.TRACE = None
+    stats["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    for form in forms:
+        assert stats["launches"].get(form, 0) > 0, \
+            f"the mesh run launched no {form} ({stats['launches']})"
+    return out, wall, stats
+
+
+def mesh_pair(name, mesh, device, batch, mut, rdiag, A, count_mode):
+    """One f32 tree through ShardedEnumerator and through one card's
+    DeviceEnumerator on the same roots (its batch is the mesh helper's):
+    the record, both enumerators and both evaluators."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.enum.device import DeviceEnumerator
+    from fplll_tpu_torch.enum.evaluator import FastEvaluator
+    from fplll_tpu_torch.parallel.mesh import ShardedEnumerator
+
+    cp0 = np.zeros(len(rdiag))
+    se = ShardedEnumerator(mesh, batch_per_device=batch, dtype=torch.float32)
+    ev_m, ev_s = FastEvaluator(), FastEvaluator()
+    _, wall_m, stats = on_mesh(lambda: se.enumerate(
+        mut, rdiag, None, cp0, A, True, ev_m, count_mode=count_mode),
+        ("single",))
+    single = DeviceEnumerator(batch=batch * mesh.size, device=device)
+    t0 = time.perf_counter()
+    single.enumerate(mut, rdiag, None, cp0, A, True, ev_s,
+                     count_mode=count_mode)
+    rec = {"case": name, "mesh_wall_s": wall_m,
+           "single_card_wall_s": time.perf_counter() - t0,
+           "nodes": int(se.nodes.sum()),
+           "single_card_nodes": int(single.nodes.sum()), **stats}
+    assert (stats["sweeps"], stats["steals"]) == (se.sweeps, se.last_steals)
+    return rec, se, single, ev_m, ev_s
+
+
+def phase_mesh(device, devices=None, batch=MESH_BATCH, count=MESH_COUNT,
+               search=MESH_SEARCH, skew=MESH_SKEW, svp=(SVP_DIM, SVP_SEED),
+               svp_norm=None, trials=(80, 60)) -> dict:
+    """Phase 7: parallel/mesh.py over four shards (mesh_shards), each
+    check beside the same work on one card: a count tree (per-level nodes
+    and solutions exactly the single card's), a falling-bound search (the
+    exact norm the single card and the C core find), a skewed count tree
+    (exact counts, at least one steal), phase 5's proved SVP through the
+    public function with the facade's mesh hook pointed at the shards (f64,
+    the host route's exact norm `svp_norm`) and phase 2's grouped trials
+    through mesh_enumerate_trials (union best: the C core's, certified).
+    Launch counts are zeroed just before each mesh run and read just
+    after it (on_mesh), so that `launches` sums the mesh runs alone, not
+    the single-card comparisons. Sizes are parameters so that the phase
+    can be rehearsed small on CPU shards."""
+    import numpy as np
+    from fplll_tpu_torch.algs.svpcvp import shortest_vector
+    from fplll_tpu_torch.enum import device as device_mod
+    from fplll_tpu_torch.native import native_enumerate
+    from fplll_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.make_enum_mesh(devices=devices or mesh_shards())
+    mesh_launches = tmesh.ShardedEnumerator.launches
+    recs = []
+
+    # the count tree: exactly the single card's counts
+    _, mut, rdiag, _, A, _ = uniform_window(count[0], count[1], False,
+                                            count[2])
+    rec, se, single, ev_m, ev_s = mesh_pair(
+        f"count d{count[0]} r{count[2]}", mesh, device, batch, mut, rdiag,
+        A, True)
+    rec.update(sol_count=ev_m.sol_count, single_card_sol_count=ev_s.sol_count,
+               counts_equal=bool(np.array_equal(se.nodes, single.nodes)))
+    log("mesh " + json.dumps(rec))
+    assert rec["counts_equal"] and ev_m.sol_count == ev_s.sol_count, rec
+    recs.append(rec)
+
+    # the falling-bound search: the shortest vector's exact norm
+    b, mut, rdiag, _, A, _ = uniform_window(search[0], search[1], False,
+                                            search[2])
+    rec, se, single, ev_m, ev_s = mesh_pair(
+        f"search d{search[0]} r{search[2]}", mesh, device, batch, mut,
+        rdiag, A, False)
+    c_core = native_enumerate(mut, rdiag, None, None, A, True, False, False)
+    rec.update(norm_mesh=exact_norm(b, ev_m.begin()[1]),
+               norm_single_card=exact_norm(b, ev_s.begin()[1]),
+               norm_c_core=exact_norm(b, c_core[2]))
+    log("mesh " + json.dumps(rec))
+    assert rec["norm_mesh"] == rec["norm_single_card"] == \
+        rec["norm_c_core"] > 0, rec
+    recs.append(rec)
+
+    # the skewed tree: exact counts, and drained shards stole work
+    _, mut, rdiag, A = qary_window(*skew)
+    rec, se, single, ev_m, ev_s = mesh_pair(
+        f"skewed q-ary count d{skew[0]} r{skew[2]}", mesh, device, batch,
+        mut, rdiag, A, True)
+    rec.update(sol_count=ev_m.sol_count,
+               counts_equal=bool(np.array_equal(se.nodes, single.nodes)))
+    log("mesh " + json.dumps(rec))
+    assert rec["counts_equal"] and ev_m.sol_count == ev_s.sol_count, rec
+    assert rec["steals"] >= 1, f"no shard stole work: {rec}"
+    recs.append(rec)
+
+    # phase 5's proved SVP through the public function, f64 over the mesh
+    bs = intrel_basis(*svp)
+    saved = device_mod._visible_mesh
+    device_mod._visible_mesh = lambda dev: mesh
+    try:
+        (sm, xm), wall_m, stats = on_mesh(
+            lambda: shortest_vector(bs.copy(), device=device), ("f64",))
+    finally:
+        device_mod._visible_mesh = saved
+    saved = os.environ.get("FPLLL_TPU_MESH")
+    os.environ["FPLLL_TPU_MESH"] = "0"     # one card, also among several
+    try:
+        t0 = time.perf_counter()
+        ss, xs = shortest_vector(bs.copy(), device=device)
+        wall_s = time.perf_counter() - t0
+    finally:
+        if saved is None:
+            del os.environ["FPLLL_TPU_MESH"]
+        else:
+            os.environ["FPLLL_TPU_MESH"] = saved
+    if svp_norm is None:
+        svp_norm = sum(v * v for v in lattice_point(
+            bs, shortest_vector(bs.copy(), backend="cpu")[1]))
+    rec = {"case": f"proved SVP d{svp[0]} seed {svp[1]} (f64, facade)",
+           "mesh_wall_s": wall_m, "single_card_wall_s": wall_s,
+           "norm_mesh": sum(v * v for v in lattice_point(bs, xm)),
+           "norm_single_card": sum(v * v for v in lattice_point(bs, xs)),
+           "norm_host": svp_norm, "status": [sm, ss], **stats}
+    log("mesh " + json.dumps(rec))
+    assert sm == ss == 0 and rec["norm_mesh"] == rec["norm_single_card"] \
+        == svp_norm > 0, rec
+    assert stats["sweeps"] > 0, "the proved SVP did not reach the mesh"
+    recs.append(rec)
+
+    # phase 2's grouped trials, one per shard, the bound shared between
+    # sweeps; the single card's grouped launch beside it
+    gt = grouped_trials(device, *trials)
+    G = len(gt["bases"])
+    maxd = np.full(G, gt["union_best_c"] * GROUPED_RADIUS)
+    (dists, sols, nodes), wall_m, stats = on_mesh(
+        lambda: tmesh.mesh_enumerate_trials(mesh, gt["muts"], gt["rdiags"],
+                                            gt["prunes"], maxd), ("single",))
+    t0 = time.perf_counter()
+    one = device_mod._grouped_device_windows(gt["muts"], gt["rdiags"],
+                                             gt["prunes"], maxd, device)
+    wall_s = time.perf_counter() - t0
+    g = int(np.argmin(dists))
+    exact = math.ldexp(exact_norm(gt["bases"][g], sols[g]), -gt["normexp"])
+    c_best = gt["union_best_c"]
+    rec = {"case": f"grouped trials G={G} block {trials[1]} (mesh_enumerate"
+                   "_trials)", "mesh_wall_s": wall_m,
+           "single_card_wall_s": wall_s, "union_best": float(dists[g]),
+           "single_card_union_best": float(np.min(one[0])),
+           "exact_norm": exact, "c_core_union_best": c_best,
+           "certified_trials": gt["certified"], "nodes": int(nodes.sum()),
+           **stats}
+    log("mesh " + json.dumps(rec))
+    assert math.isfinite(rec["union_best"]), rec
+    assert abs(exact - c_best) <= 1e-9 * c_best, rec
+    assert abs(rec["union_best"] - exact) <= F32_DIST_TOL * exact, rec
+    recs.append(rec)
+
+    launches = {}
+    for r in recs:
+        for form, n in r["launches"].items():
+            launches[form] = launches.get(form, 0) + n
+    out = {"shards": [str(d) for d in mesh.devices], "launches": launches,
+           "mesh_runs": tmesh.ShardedEnumerator.launches - mesh_launches,
+           "checks": recs}
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 1: the build's instances
 # ---------------------------------------------------------------------------
 # registers of the six f32 instances of BKZ-2.0, (M, SMEM) -> registers,
@@ -1875,11 +2182,11 @@ def phase_build() -> dict:
     return {"nvcc_s": build_s, "instances": len(inst)}
 
 
-def extended_entries(ext_recs, svp_recs, surface_counts) -> list:
+def extended_entries(ext_recs, svp_recs, path_counts) -> list:
     """The `kernels` line's entry of each form of the proved solvers: its
     phase-2 numbers (count mode, and search mode where it ran) and its
-    launches on phase 5's and phase 6's paths."""
-    launches = dict(surface_counts)
+    launches on phase 5's path and on phases 6 and 7 (`path_counts`)."""
+    launches = dict(path_counts)
     for r in svp_recs:
         for form, n in r["card"]["launches"].items():
             launches[form] = launches.get(form, 0) + n
@@ -1920,7 +2227,31 @@ def extended_entries(ext_recs, svp_recs, surface_counts) -> list:
     return entries
 
 
-def main() -> int:
+def mesh_numbers(rec) -> dict:
+    """Phase 7's line: the shards, launches per form, and each check's
+    walls on the mesh and on one card, sweeps, steals and per-shard
+    launches."""
+    keys = ("mesh_wall_s", "single_card_wall_s", "launches", "sweeps",
+            "steals", "sweeps_with_several_launching",
+            "sweeps_with_launches_pending_together",
+            "sweeps_with_cards_busy_together", "shards")
+    return {"shards": rec["shards"], "launches": rec["launches"],
+            "mesh_runs": rec["mesh_runs"],
+            "checks": {c["case"]: {k: c[k] for k in keys if k in c}
+                       for c in rec["checks"]}}
+
+
+def contract_line() -> int:
+    """The last line: what the run ran on."""
+    import torch
+
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(mesh_only: bool = False) -> int:
     try:
         import torch
     except ImportError:
@@ -1955,6 +2286,17 @@ def main() -> int:
         assert lib is not None, f"native {name} did not load"
         log(f"build {name}.c (cc): {time.perf_counter() - t0:.3f} s")
 
+    if mesh_only:
+        # phase 7 alone, for a machine with several cards (the proved
+        # SVP's norm then comes from the host route)
+        log(f"{torch.cuda.device_count()} cards visible")
+        t0 = time.perf_counter()
+        mesh_rec = phase_mesh(device)
+        log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+        log(json.dumps({"phase7": mesh_numbers(mesh_rec)}))
+        log(card)
+        return contract_line()
+
     # -- phase 2: kernel against plain version -----------------------------
     t0 = time.perf_counter()
     forms, max_err, timing = phase_kernel_checks(device)
@@ -1984,6 +2326,14 @@ def main() -> int:
     log(f"phase 6 done in {time.perf_counter() - t0:.1f} s")
     surface_counts = surface_launches(surf)
 
+    # -- phase 7: the mesh ---------------------------------------------------
+    t0 = time.perf_counter()
+    mesh_rec = phase_mesh(device, svp_norm=svp_recs[0]["norm_host"])
+    log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
+    mesh_counts = mesh_rec["launches"]
+    path_counts = {k: surface_counts.get(k, 0) + mesh_counts.get(k, 0)
+                   for k in set(surface_counts) | set(mesh_counts)}
+
     grouped = next(f for f in forms if f["form"].startswith("grouped"))
     by_form = {"queue d56 count": timing["kernel_ms"],
                f"{grouped['form']} search": grouped["kernel_ms"]}
@@ -1991,6 +2341,7 @@ def main() -> int:
         "section 6, not measured in this run): "
         + json.dumps(LANE_KERNEL_RECORDED_MS))
     log(json.dumps({"phase6": phase6_numbers(surf, surface_counts)}))
+    log(json.dumps({"phase7": mesh_numbers(mesh_rec)}))
     log(card)
     log(json.dumps({"kernels": [{
         "name": "enum_chunk_kernel",
@@ -2002,9 +2353,11 @@ def main() -> int:
                            "fplll_tpu/enum/pallas_kernel.py:925",
                            "fplll_tpu/enum/pallas_kernel.py:961"],
         "launches": sum(main_rec["launches"].values()) +
-        surface_counts.get("single", 0) + surface_counts.get("grouped", 0),
+        path_counts.get("single", 0) + path_counts.get("grouped", 0),
         "launches_by_wrapper": main_rec["launches"],
         "launches_phase6": {k: surface_counts.get(k, 0)
+                            for k in ("single", "grouped")},
+        "launches_phase7": {k: mesh_counts.get(k, 0)
                             for k in ("single", "grouped")},
         "max_abs_err": max_err,
         "ms": timing["kernel_ms"],
@@ -2024,12 +2377,9 @@ def main() -> int:
         "geometry": {k: timing[k] for k in (
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_root_walk")},
-    }] + extended_entries(ext_recs, svp_recs, surface_counts)}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    }] + extended_entries(ext_recs, svp_recs, path_counts)}))
+    return contract_line()
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh"]))

@@ -6,7 +6,9 @@ CVP), with the enumeration hot path on a hand-written CUDA kernel for
 Hopper (``csrc/enum_chunk.cu``: f32 trees for BKZ windows, f64 trees for
 the proved solvers, the dual recurrence and per-level sub-solutions) and
 the host orchestration (exact-integer LLL, GSO, the native C cores)
-carried over unchanged. The pruner takes its analytic gradient from
+carried over unchanged. With more than one card visible, the enumeration
+facade shards its trees over every card from one process
+(:mod:`fplll_tpu_torch.parallel.mesh`). The pruner takes its analytic gradient from
 torch.autograd, and a full GSO recompute at d >= FPLLL_TPU_DEVICE_GSO_DIM
 runs as an f64 Cholesky on the device. The user surfaces are the CLIs
 (``python -m fplll_tpu_torch.cli.main``, ``.cli.latticegen``,

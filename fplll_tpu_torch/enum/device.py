@@ -250,15 +250,10 @@ class DeviceEnumerator:
                                       rx, ra, rpd, m2)
         return md
 
-    def _pack(self, mut, rdiag, prune, cp0, d, roots_x, roots_pd,
-              m_real, roots_a=None) -> dict:
-        """Sort one root batch and pad it to the kernel buckets. Returns
-        the tensors of enum_run (on this enumerator's device, in its
-        dtype) with the padded height m and the real height m_real;
-        roots_a (what the roots feed the center sums under dual) rides
-        along when given."""
-        order = np.argsort(roots_pd)
-        roots_x, roots_pd = roots_x[order], roots_pd[order]
+    def _pack_tree(self, mut, rdiag, prune, cp0, d, m_real) -> dict:
+        """The device levels of one tree padded to the kernel buckets, on
+        the host in f64: mut (m, m), rdiag, prune, cp0 (m,) and mut_fix
+        (m, nfix_pad), with the padded height m and nfix_pad."""
         nfix = d - m_real
         # pad the device tree height to a bucket; virtual levels admit
         # exactly x = 0 (center 0, the rdiag sentinel kills any sibling:
@@ -280,6 +275,22 @@ class DeviceEnumerator:
         mut_fix_pad = np.zeros((m, nfix_pad))
         if nfix:
             mut_fix_pad[:m_real, :nfix] = mut[:m_real, m_real:d]
+        return {"mut": mut_pad, "rdiag": rdiag_pad, "prune": prune_pad,
+                "mut_fix": mut_fix_pad, "cp0": cp0_pad, "m": m,
+                "nfix_pad": nfix_pad}
+
+    def _pack(self, mut, rdiag, prune, cp0, d, roots_x, roots_pd,
+              m_real, roots_a=None) -> dict:
+        """Sort one root batch and pad it to the kernel buckets. Returns
+        the tensors of enum_run (on this enumerator's device, in its
+        dtype) with the padded height m and the real height m_real;
+        roots_a (what the roots feed the center sums under dual) rides
+        along when given."""
+        order = np.argsort(roots_pd)
+        roots_x, roots_pd = roots_x[order], roots_pd[order]
+        nfix = d - m_real
+        tree = self._pack_tree(mut, rdiag, prune, cp0, d, m_real)
+        m, nfix_pad = tree.pop("m"), tree.pop("nfix_pad")
         # root queue padded to a power-of-two bucket (>= one batch);
         # padding roots are dead (+inf)
         R = len(roots_pd)
@@ -295,10 +306,9 @@ class DeviceEnumerator:
             return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
                                    device=self.device)
 
-        out = {"mut": dev(mut_pad), "rdiag": dev(rdiag_pad),
-               "prune": dev(prune_pad), "mut_fix": dev(mut_fix_pad),
-               "cp0": dev(cp0_pad), "roots_x": dev(rx_pad),
-               "roots_pd": dev(rpd_pad), "m": m, "m_real": min(m_real, m)}
+        out = {k: dev(v) for k, v in tree.items()}
+        out.update(roots_x=dev(rx_pad), roots_pd=dev(rpd_pad), m=m,
+                   m_real=min(m_real, m))
         if roots_a is not None:
             ra_pad = np.zeros((R_pad, nfix_pad))
             ra_pad[:R, :nfix] = roots_a[order]
@@ -406,12 +416,31 @@ def auto_batch(est_nodes: float) -> int:
     return 4096 if est_nodes > 3e8 else 1024
 
 
-def _make_enumerator(est_nodes: float = 0.0, device=None,
-                     dtype=_F32) -> DeviceEnumerator:
-    """The single-card enumerator for the facade (the multi-card mesh is
-    a later slice of the port)."""
+def _visible_mesh(device):
+    """A mesh of every visible card when `device` is a card and more
+    than one is visible, else None: where the facade and the window path
+    look for a mesh (tests replace it to get CPU shards)."""
+    if device.type != "cuda" or torch.cuda.device_count() < 2:
+        return None
+    from ..parallel.mesh import make_enum_mesh
+    return make_enum_mesh()
+
+
+def _make_enumerator(est_nodes: float = 0.0, device=None, dtype=_F32):
+    """The device enumerator for the facade: the sharded enumerator over
+    every card when more than one is visible (the JAX package's rule and
+    its switch: FPLLL_TPU_MESH=0 keeps one card), else the single-card
+    DeviceEnumerator."""
     from ..threads import get_batch
     batch = auto_batch(est_nodes) if est_nodes > 0 else get_batch()
+    device = resolve_device(device)
+    mesh = _visible_mesh(device) \
+        if os.environ.get("FPLLL_TPU_MESH", "1") != "0" else None
+    if mesh is not None:
+        from ..parallel.mesh import ShardedEnumerator
+        return ShardedEnumerator(mesh,
+                                 batch_per_device=max(128, batch // mesh.size),
+                                 dtype=dtype)
     return DeviceEnumerator(batch=batch, device=device, dtype=dtype)
 
 
@@ -699,10 +728,11 @@ def device_enumerate_windows(muts, rdiags, prunes, maxdists, device=None):
 
     G > 1 are rerandomized trials of one window (bkz_core.c
     grouped_trials_c): they run in one scale, in one kernel launch with
-    one shared bound (FPLLL_TPU_GROUPED_LAUNCH=0 runs them one by one
-    instead), and only the trial holding the shortest vector reports,
-    since the caller keeps one trial and compares the distances it gets
-    as if they shared a scale. Mirrors the facade's policies: f32 tree
+    one shared bound (where that launch declines, one per card of a
+    mesh; FPLLL_TPU_GROUPED_LAUNCH=0 runs them one by one instead), and
+    only the trial holding the shortest vector reports, since the caller
+    keeps one trial and compares the distances it gets as if they shared
+    a scale. Mirrors the facade's policies: f32 tree
     with slack + exact-integer postprocessing upstream, GH iterative
     deepening for bounds far past the Gaussian heuristic.
     """
@@ -719,6 +749,9 @@ def device_enumerate_windows(muts, rdiags, prunes, maxdists, device=None):
     out = None
     if os.environ.get("FPLLL_TPU_GROUPED_LAUNCH", "1") != "0":
         out = _grouped_device_windows(muts, rdiags, prunes, maxdists, device)
+        if out is None:
+            out = _mesh_grouped_windows(muts, rdiags, prunes, maxdists,
+                                        device)
     if out is None:
         out = _trial_windows(muts, rdiags, prunes, maxdists, device)
     dists, sols, total_nodes = out
@@ -727,6 +760,29 @@ def device_enumerate_windows(muts, rdiags, prunes, maxdists, device=None):
         g = int(np.argmin(dists))
         only[g] = dists[g] / scale[g]
     return only, sols, total_nodes
+
+
+def _mesh_grouped_windows(muts, rdiags, prunes, maxdists, device):
+    """The G trials one per card of a mesh (parallel/mesh.py
+    mesh_enumerate_trials, the bound shared between sweeps), where the
+    grouped launch declined and a mesh of at least two cards, and no
+    fewer than G, is visible; FPLLL_TPU_MESH_TRIALS=0 turns it off. Same contract as
+    _grouped_device_windows. Returns (dists, sols, total_nodes) or None
+    to decline. Unlike the JAX package, which warns once and falls back
+    to the trial loop on any failure, only the mesh's documented
+    refusal declines: any other error raises."""
+    if os.environ.get("FPLLL_TPU_MESH_TRIALS", "1") == "0":
+        return None
+    mesh = _visible_mesh(device)
+    if mesh is None or mesh.size < 2 or muts.shape[0] > mesh.size:
+        return None
+    from ..parallel.mesh import MeshDecline, mesh_enumerate_trials
+    try:
+        dists, sols, nodes = mesh_enumerate_trials(mesh, muts, rdiags,
+                                                   prunes, maxdists)
+    except MeshDecline:
+        return None     # a window taller than the kernel: the trial loop
+    return dists, sols, float(nodes.sum())
 
 
 def _trial_windows(muts, rdiags, prunes, maxdists, device):
@@ -746,13 +802,14 @@ def _trial_windows(muts, rdiags, prunes, maxdists, device):
         enum = _make_enumerator(
             gh_tree_estimate(rdiags[g], prunes[g], float(maxdists[g])),
             device=device)
-        # root factor and geometry pins of the JAX package's window path
-        # (tpu.py:1211-1219): one launch geometry per window size
-        enum.target_root_factor = int(os.environ.get(
-            "FPLLL_TPU_WINDOW_ROOT_FACTOR", "16"))
-        enum.pin_m = min(((m + 7) // 8) * 8, enum.max_device_levels)
-        enum.pin_nfix = 16
-        enum.pin_R = 32768
+        if isinstance(enum, DeviceEnumerator):
+            # root factor and geometry pins of the JAX package's window
+            # path (tpu.py:1211-1219): one launch geometry per window size
+            enum.target_root_factor = int(os.environ.get(
+                "FPLLL_TPU_WINDOW_ROOT_FACTOR", "16"))
+            enum.pin_m = min(((m + 7) // 8) * 8, enum.max_device_levels)
+            enum.pin_nfix = 16
+            enum.pin_R = 32768
         maxdist = float(maxdists[g])
         gh2 = math.exp(float(np.mean(np.log(rdiags[g]))) -
                        2.0 * (m / 2.0 * math.log(math.pi) -

@@ -9,7 +9,9 @@ ctypes. Two wrappers launch it:
 - :func:`enum_run` — one problem, the contract of `_enum_run_pallas`
   (itself a drop-in for `tpu._enum_run`): device-level tree of height m
   over a sorted root queue, returning per-level node counts, the K best
-  lanes and the solution count;
+  lanes and the solution count; it is :func:`enum_launch` (the launch,
+  no read of the device) followed by :func:`enum_collect` (the
+  finalize), which the multi-card mesh calls apart;
 - :func:`enum_run_grouped` — G problems (rerandomized bases of one
   window) in one launch with one shared shrinking bound, the contract of
   `_enum_run_pallas_grouped`.
@@ -44,9 +46,10 @@ from typing import Dict, Optional, Set, Tuple
 
 from ..torchsetup import torch
 
-__all__ = ["enum_run", "enum_run_grouped", "enum_run_plain",
-           "enum_run_grouped_plain", "build_kernel", "LAUNCHES", "PLAIN_RUNS",
-           "reset_launch_counts", "MAX_LEVELS", "GRIDS", "FORMS"]
+__all__ = ["enum_run", "enum_launch", "enum_collect", "enum_run_grouped",
+           "enum_run_plain", "enum_run_grouped_plain", "build_kernel",
+           "LAUNCHES", "PLAIN_RUNS", "reset_launch_counts", "MAX_LEVELS",
+           "GRIDS", "FORMS"]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL_SOURCE = os.path.join(_PKG, "csrc", "enum_chunk.cu")
@@ -172,11 +175,13 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
              *, G_real: int, walkers: int, is_svp: bool, count_mode: bool,
              max_steps: int, roots_a=None, dual: bool = False,
-             findsubsols: bool = False):
+             findsubsols: bool = False, m_real_range=None):
     """Check the stacked inputs of G problems (float32 or float64, all
     alike), allocate the outputs (one slot per problem and walker, and
     the per-level sub-solution records) on their device and fill the
-    kernel's parameter struct."""
+    kernel's parameter struct. `m_real_range` (least, largest m_real),
+    when the caller knows it, spares the read of m_real from the
+    device."""
     G, m, _ = mut.shape
     R, nfixp = roots_x.shape[1], roots_x.shape[2]
     dev, ft = mut.device, mut.dtype
@@ -196,8 +201,10 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
     _check(m_real, "m_real", i32, (G,), dev)
     if not 2 <= m <= MAX_LEVELS:
         raise ValueError(f"tree height {m} outside [2, {MAX_LEVELS}]")
-    mr = m_real.cpu()
-    if int(mr.min()) < 2 or int(mr.max()) > m:
+    if m_real_range is None:
+        mr = m_real.cpu()
+        m_real_range = (int(mr.min()), int(mr.max()))
+    if m_real_range[0] < 2 or m_real_range[1] > m:
         raise ValueError("m_real must lie in [2, m]")
     if not 1 <= G_real <= G or walkers < 1:
         raise ValueError(f"G_real {G_real} of G {G}, {walkers} walkers")
@@ -363,16 +370,36 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
     root queue from it); on the card the launch geometry sets the
     walkers: `grid` blocks (0: the persistent grid from occupancy) of
     walkers ENUM_WIDTH threads wide. K is min(batch, 128) on the CPU and
-    min(walkers, 128) on the card."""
+    min(walkers, 128) on the card.
+
+    The composition of :func:`enum_launch` and :func:`enum_collect`."""
+    return enum_collect(enum_launch(
+        mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m=m,
+        is_svp=is_svp, count_mode=count_mode, max_steps=max_steps,
+        batch=batch, m_real=m_real, grid=grid, roots_a=roots_a, dual=dual,
+        findsubsols=findsubsols))
+
+
+def enum_launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
+                A0: float, *, m: int, is_svp: bool, count_mode: bool,
+                max_steps: int = 1 << 30, batch: int = 1024,
+                m_real: Optional[int] = None, grid: int = 0, roots_a=None,
+                dual: bool = False, findsubsols: bool = False) -> dict:
+    """The first half of :func:`enum_run`, with its arguments. On CUDA
+    tensors it launches the kernel on the current stream, with outputs
+    allocated there, and returns without reading the device, so that a
+    caller can launch on several streams or cards before it waits for
+    any; on CPU tensors it runs the plain version. Pass what it returns
+    to :func:`enum_collect` under the same device and stream."""
     dev = mut.device
     form = _form(mut.dtype, dual, findsubsols)
     if dev.type == "cpu":
         PLAIN_RUNS[form] += 1
-        return enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
-                               roots_pd, A0, m=m, is_svp=is_svp,
-                               count_mode=count_mode, max_steps=max_steps,
-                               batch=batch, roots_a=roots_a, dual=dual,
-                               findsubsols=findsubsols)
+        return {"result": enum_run_plain(
+            mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m=m,
+            is_svp=is_svp, count_mode=count_mode, max_steps=max_steps,
+            batch=batch, roots_a=roots_a, dual=dual,
+            findsubsols=findsubsols)}
     if dev.type != "cuda":
         raise ValueError(f"enum_run: unsupported device {dev}")
     mr = m if m_real is None else int(m_real)
@@ -384,12 +411,25 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
         G_real=1, grid=grid, is_svp=is_svp,
         count_mode=count_mode, max_steps=max_steps,
         roots_a=None if roots_a is None else roots_a[None], dual=dual,
-        findsubsols=findsubsols)
+        findsubsols=findsubsols, m_real_range=(mr, mr))
     LAUNCHES[form] += 1
     geo = out["geometry"]
     GRIDS[form].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
-    return _finalize_single(out, roots_x, A0, count_mode=count_mode,
-                            walkers=geo["walkers"], max_steps=max_steps)
+    return {"raw": out, "roots_x": roots_x, "A0": A0,
+            "count_mode": count_mode, "max_steps": max_steps}
+
+
+def enum_collect(launched: dict) -> dict:
+    """The second half of :func:`enum_run`: the top-K finalize of a
+    launch, which waits for the kernel (it reads the abort flag), or the
+    plain version's result."""
+    if "result" in launched:
+        return launched["result"]
+    out = launched["raw"]
+    return _finalize_single(out, launched["roots_x"], launched["A0"],
+                            count_mode=launched["count_mode"],
+                            walkers=out["geometry"]["walkers"],
+                            max_steps=launched["max_steps"])
 
 
 def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,

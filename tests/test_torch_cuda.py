@@ -300,3 +300,65 @@ def test_device_gso_on_card_matches_host(card, monkeypatch, d):
     assert np.abs(back).max() <= 1e-12 * np.abs(G).max()
     assert blockgso.device_chol_gso(np.array([[1.0, 2.0], [2.0, 1.0]]),
                                     device=card) is None
+
+
+def mesh_shards(kind):
+    if kind == "shared card":
+        return [torch.device("cuda", 0)] * 4
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs more than one card")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("kind", ["shared card", "one per card"])
+def test_mesh_matches_single_card(card, kind):
+    """ShardedEnumerator over four streams of one card, or over every
+    card, against one card's DeviceEnumerator on the same roots: count
+    mode gives exactly its per-level nodes and solutions; a search at 1.3
+    times the shortest basis vector the same exact norm, which the C core
+    finds too; mesh_enumerate_trials on three copies of the window finds
+    that norm as well."""
+    from fplll_tpu_torch.enum.evaluator import FastEvaluator
+    from fplll_tpu_torch.native import native_enumerate
+    from fplll_tpu_torch.parallel import mesh as tmesh
+
+    mesh = tmesh.make_enum_mesh(devices=mesh_shards(kind))
+    RandGen.init_with_seed(3)
+    b = gen.gen_uniform(40, 12)
+    lll_reduction(b)
+    gso = MatGSO(b, flags=GSO_INT_GRAM, ctx=MPCtx(80))
+    gso.update_gso()
+    mut, rdiag, normexp = gso.export_mu_r(0, 40)
+    mut, rdiag = np.asarray(mut), np.asarray(rdiag)
+    A = math.ldexp(min(float(gso.get_int_gram(i, i)) for i in range(40)) *
+                   1.3, -normexp)
+
+    def norm(x):
+        v = [sum(int(round(c)) * int(b.a[i, j]) for i, c in enumerate(x))
+             for j in range(b.ncols)]
+        return sum(t * t for t in v)
+
+    launches = dict(kernels.LAUNCHES)
+    for count_mode in (True, False):
+        se = tmesh.ShardedEnumerator(mesh, batch_per_device=128,
+                                     dtype=torch.float32)
+        one = DeviceEnumerator(batch=128 * mesh.size, device=card)
+        evs = [FastEvaluator(), FastEvaluator()]
+        for enum, ev in zip((se, one), evs):
+            enum.enumerate(mut, rdiag, None, np.zeros(40), A, True, ev,
+                           count_mode=count_mode)
+        if count_mode:
+            np.testing.assert_array_equal(se.nodes, one.nodes)
+            assert evs[0].sol_count == evs[1].sol_count > 0
+        else:
+            c = native_enumerate(mut, rdiag, None, None, A, True, False,
+                                 False)
+            assert norm(evs[0].begin()[1]) == norm(evs[1].begin()[1]) == \
+                norm(c[2])
+    dists, sols, _ = tmesh.mesh_enumerate_trials(
+        mesh, np.asarray([mut] * 3), np.asarray([rdiag] * 3),
+        np.ones((3, 40)), np.full(3, A))
+    g = int(np.argmin(dists))
+    assert norm(sols[g]) == norm(c[2])
+    assert kernels.LAUNCHES["single"] >= launches["single"] + mesh.size
