@@ -36,13 +36,54 @@
  * siblings under an all-zero prefix), per-level node counters, the best
  * leaf per walker and problem. A walker at level 1 absorbs the whole
  * level-0 sibling range analytically (pallas_kernel.py:254-304) and then
- * repeats the stepwise walk's cs[0] subtract/restore round trip, so
- * count-mode node counts equal the plain version's exactly. Roots are
- * sorted by partial distance: the first root over the bound drains the
- * queue.
+ * repeats the stepwise walk's cs[0] subtract/restore round trip. Roots
+ * are sorted by partial distance: the first root over the bound drains
+ * the queue.
  *
- * Left out, as they change only how work is scheduled: the barren-descend
- * lookahead and the in-kernel top-sibling donation of the TPU kernel.
+ * The two other parts of the TPU kernel's body:
+ *   - the barren-descend lookahead (pallas_kernel.py:349-366), in the f32
+ *     primal instances only, as on the TPU: a passing node above level 1
+ *     computes its nearest child's center and first x (the child's own
+ *     first bound test); where that fails, the node steps to its next
+ *     sibling in the same iteration instead of descending, which skips
+ *     the descend's subtract and the ascend's restore of the center sums
+ *     below it (barren_skips counts them). The plain version's "single"
+ *     and "grouped" forms do the same;
+ *   - top-sibling donation (pallas_kernel.py:546-674), in every instance:
+ *     once every queue has drained, an idle walker takes a ticket (the
+ *     request queue) and waits in its ticket's mailbox; a busy walker that
+ *     sees a request in its 32-iteration check, and still owns a level
+ *     above its own, claims the ticket and hands over the sibling range
+ *     of the topmost such level jstar: its problem and root, its path
+ *     x[l] and centers c_l for l >= jstar and pd[jstar]; then caps its own
+ *     ascent at jstar. The adoptee continues the zig-zag from the donor's
+ *     x[jstar] (x + 1 under an all-zero SVP prefix), stops ascending above
+ *     jstar, and can donate onward. It derives its center sums below
+ *     jstar as a fresh descent along the path would: the root's sums, then
+ *     w_l mu[l][j] subtracted for l = m_real - 1 down to jstar + 1 (w_l =
+ *     x_l, or x_l - c_l under dual). Termination: busy counts the walkers
+ *     that hold work; a walker counts itself before it pops a root, a
+ *     donor counts its adoptee once its claim succeeds (its own count
+ *     keeps busy above 0 until then), and a walker uncounts itself when
+ *     it goes idle or passes the step cap. The walker that brings busy to
+ *     0 holds the last work: no walker holds work and none can donate, so
+ *     it sets every mailbox's sequence word to ENUM_DONE and the idle
+ *     walkers, each polling only its own mailbox, leave; the step cap
+ *     releases them the same way. No walker waits on one that has not
+ *     started, so blocks need not all be resident. A mailbox is reused a
+ *     round later only after its reader freed it, and a released one is
+ *     never written again (both by compare-and-swap on its sequence).
+ *
+ * Parity contract (tests/test_pallas_parity.py:164-175, as the JAX
+ * package holds its own Pallas kernel against XLA): an adoptee re-derives
+ * the sums that the stepwise walk carried through its round trips, and a
+ * skipped descend skips a round trip, and fl(fl(a - t) + t) == a is not
+ * guaranteed, so counts may differ from the plain version's at ULP level
+ * in marginal bound tests: equal solution counts, the best distance to
+ * 1e-4, total nodes to 1%, levels above 200 nodes to 2%. A launch that
+ * donates nothing gives the plain version's counts exactly; so does every
+ * launch on a tree whose walk is exact in f32 (tests/test_torch_donation.py:
+ * every width, grid, instance and height bucket).
  *
  * Parity rules: rounding is trunc(x +- 0.5) (the JAX package's _cround),
  * every multiply-add goes through __fmul_rn/__fadd_rn (and the build
@@ -76,13 +117,13 @@
  *     test, the zig-zag step and the leaf-range absorption on the same
  *     values, so control flow is uniform within a walker. Each cs[j] goes
  *     through the same operations in the same order as in a one-thread
- *     walk, so a root's walk, and a count, is bit-identical at every W
- *     and every grid;
+ *     walk, so a root's walk is bit-identical at every W and every grid,
+ *     and so is a count where nothing is donated;
  *   - the grid is persistent: the launcher sizes it from the occupancy of
  *     the instance (blocks per SM times SMs), and walkers pop roots until
  *     every real problem's queue has drained, moving on to the next real
- *     problem when theirs is empty, so the card, not the root batch, sets
- *     the number of walkers, and no walker waits on another;
+ *     problem when theirs is empty, and then take donated sibling ranges,
+ *     so the card, not the root batch, sets the number of walkers;
  *   - mu, rdiag and prune of all real problems sit in shared memory where
  *     they fit (17 KB per problem at m = 64; row stride m + 1), else they
  *     are read from global memory (the SMEM template parameter, so that no
@@ -91,15 +132,15 @@
  *     stale read only wastes work, as on the TPU), when the step cap is
  *     checked too; counters go to uint64 globals once per walker and
  *     problem.
- * What bounds it now: the longest walk under a single root. Besides the
- * longest walk of a walker, the kernel records the longest walk under one
- * root; on the main path's trees the two are equal, so one root's subtree
- * is the whole critical path, and a step of it is a stream of a few dozen
- * mostly dependent instructions (chip_smoke.py prints both walks and the
- * time per step at a grid of one block). Computing both moves before
- * the bound test picks one, to drop the branches, issues more
- * instructions and was slower. Splitting work below a root is the next
- * step. No stack frame is needed: the walker state is registers only
+ * Without the donation one root's walk would set the launch's time (the
+ * rest of the card idle); the kernel records the longest walk of a
+ * walker, of one work item (a root or a donated range), the iterations
+ * of all walkers (their busy share) and the donations, and chip_smoke.py
+ * prints them with the time per step at a grid of one block. A step is
+ * a stream of a few dozen mostly
+ * dependent instructions; computing both moves before the bound test
+ * picks one, to drop the branches, issues more instructions and was
+ * slower. No stack frame is needed: the walker state is registers only
  * (`-Xptxas -v`, printed by chip_smoke.py phase 1).
  */
 
@@ -113,6 +154,8 @@
 #define ENUM_WIDTH 32      /* threads per walker */
 #endif
 #define ENUM_SMEM_MAX 232448  /* dynamic shared memory a block may hold */
+#define ENUM_DONE (-1)        /* a mailbox's sequence word once the launch
+                                 has no work left to donate */
 
 /* Element type T of the floating-point arrays: float, or double when dbl
    is set. Pointers to them are untyped here and cast in the kernel. */
@@ -138,9 +181,24 @@ struct EnumParams {
   unsigned long long *nodes;      /* (G, m) node counters */
   unsigned long long *sols;       /* (G,) solution counters */
   unsigned long long *steps;      /* (1,) longest walk of a walker */
-  unsigned long long *root_steps; /* (1,) longest walk under one root */
+  unsigned long long *root_steps; /* (1,) longest walk of one work item (a
+                                     root or a donated sibling range) */
+  unsigned long long *walk_steps; /* (1,) iterations of all walkers */
+  unsigned long long *donations;  /* (1,) sibling ranges donated */
+  unsigned long long *barren_skips; /* (1,) descends the lookahead skipped */
   int *aborted;          /* (1,) set when a walker passed max_steps (the
                             cap is checked every 32 iterations) */
+  /* the donation (see the header): requests are tickets, tickets issued
+     << 32 | tickets served, both from 0; busy counts the walkers that
+     hold work, from 0; ticket c uses mailbox c % walkers, whose int words
+     are (sequence, problem, root index, level jstar), the sequence
+     starting at the mailbox's index (ENUM_DONE once no work is left),
+     and whose T values are the donor's x and centers of levels jstar..
+     (2 m) and pd[jstar] */
+  unsigned long long *queue;      /* (1,) */
+  int *busy;             /* (1,) */
+  int *mailbox;          /* (walkers, 4) */
+  void *mail;            /* (walkers, 2 m + 1) */
   /* per-level sub-solution records of each problem (findsubsols): the
      smallest nonzero partial distance of a passing node at that level,
      its coordinates from that level up and its root; the caller
@@ -181,9 +239,15 @@ __device__ __forceinline__ void *dynamic_smem() {
 }
 /* a waiting lock taker gives the issue slots to the lock's holder */
 __device__ __forceinline__ void spin_pause() { __nanosleep(32); }
+/* an idle walker polls its own mailbox with a backoff up to 1 us */
+__device__ __forceinline__ void idle_pause(unsigned &ns) {
+  __nanosleep(ns);
+  if (ns < 1024u) ns *= 2u;
+}
 #else
 void *dynamic_smem(); /* the host emulation's per-block buffer */
 void spin_pause();    /* the host emulation lets another walker run */
+void idle_pause(unsigned &ns);
 #endif
 
 namespace {
@@ -257,6 +321,12 @@ __device__ __forceinline__ bool leaf_ok(T v, T c0, T nd, T r0, T bound0) {
   return f_add(nd, f_mul(f_mul(a, a), r0)) <= bound0;
 }
 
+/* a word another walker writes: read past the L1 cache */
+template <typename V>
+__device__ __forceinline__ V vload(const V *p) {
+  return *(volatile const V *)p;
+}
+
 /* a[slot], and a[slot] = v in the owner only, with constant indices and
    selects, so that the per-thread level arrays stay in registers and the
    owner's update does not split the warp */
@@ -317,12 +387,27 @@ __device__ __forceinline__ void offer_subsol(const EnumParams &P, int g, int t,
   }
 }
 
+/* every mailbox's sequence word to ENUM_DONE, by the W threads of a
+   walker: idle walkers leave, and no donation can be published or a
+   mailbox freed after it */
+__device__ __forceinline__ void release_mailboxes(const EnumParams &P, int t,
+                                                  int W) {
+  for (int e = t; e < P.walkers; e += W)
+    atomicExch(P.mailbox + 4 * e, ENUM_DONE);
+}
+
 /* The walk of one launch. T: the element type. SMEM: mu, rdiag and
    prune of the real problems sit in shared memory (enum_smem_bytes > 0),
    else they are read from global memory. EXT: the extended walk, with the
    dual recurrence and the sub-solution records as runtime flags (P.dual,
    P.findsubsols); the f32 primal trees of BKZ run the instances without
-   it. */
+   it, and only they have the barren-descend lookahead.
+
+   A walker's work items are roots popped from the queues and, once every
+   queue has drained, top-level sibling ranges donated by busy walkers
+   (see the header). Its registers cover levels k..top-1 of the item:
+   top = m_real for a root, jstar + 1 for a range donated at level jstar,
+   and a donor lowers its own top to the level it gave away. */
 template <typename T, int M, int W, bool SMEM, bool EXT>
 __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
   static_assert(M % W == 0 && W >= 8 && W <= 32 && (W & (W - 1)) == 0,
@@ -366,165 +451,370 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
 
   T cs[S] = {}, x[S] = {}, pd[S] = {};
   unsigned long long cnt[S];
-  unsigned long long iters = 0ull, longest_root = 0ull;
+#pragma unroll
+  for (int i = 0; i < S; i++) cnt[i] = 0ull;
+  unsigned long long iters = 0ull, longest_item = 0ull, sols = 0ull;
+  unsigned donated = 0u, barren = 0u;
   bool aborted = false;
 
-  for (int q = 0; q < P.G_real && !aborted; q++) {
-    const int g = (walker + q) % P.G_real;
-    /* mu[k][j], rdiag[k] and prune[k] of problem g: shared-memory
-       offsets in one instance, global pointers in the other, never a
-       pointer that could be either (that would make every shared load
-       convert a generic address) */
-    const int so = g * pf;
-    const T *g_mut = (const T *)P.mut + (size_t)g * m * m;
-    const T *g_r = (const T *)P.rdiag + (size_t)g * m;
-    const T *g_p = (const T *)P.prune + (size_t)g * m;
-    auto mu = [&](int k, int j) {
-      return SMEM ? smem[so + k * ld + j] : g_mut[(size_t)j * m + k];
-    };
-    auto rdiag = [&](int k) { return SMEM ? smem[so + m * ld + k] : g_r[k]; };
-    auto prune = [&](int k) {
-      return SMEM ? smem[so + m * ld + m + k] : g_p[k];
-    };
-    const int mr = P.m_real[g];
-    const T A0 = ((const T *)P.A0)[g];
-    const T *mf = (const T *)P.mut_fix + (size_t)g * m * nfix;
-    const T *cp0 = (const T *)P.cp0 + (size_t)g * m;
-    const T *roots_pd = (const T *)P.roots_pd + (size_t)g * R;
-    const T *roots_a = (const T *)P.roots_a + (size_t)g * R * nfix;
-    const size_t slot_gw = (size_t)g * P.walkers + walker;
-    T *bdev = (T *)P.bdev + slot_gw * m;
+  /* the problem g of the current work item: mu[k][j], rdiag[k] and
+     prune[k] as shared-memory offsets in one instance and global pointers
+     in the other, never a pointer that could be either (that would make
+     every shared load convert a generic address); this walker's counters,
+     best and bound of g, flushed when the walker moves to another
+     problem */
+  int g = -1, so = 0, mr = 0;
+  const T *g_mut = nullptr, *g_r = nullptr, *g_p = nullptr;
+  const T *mf = nullptr, *cp0 = nullptr, *roots_a = nullptr;
+  T *bdev = nullptr;
+  size_t slot_gw = 0;
+  T A = T(0), bdist = T(INFINITY);
+  auto mu = [&](int k, int j) {
+    return SMEM ? smem[so + k * ld + j] : g_mut[(size_t)j * m + k];
+  };
+  auto rdiag = [&](int k) { return SMEM ? smem[so + m * ld + k] : g_r[k]; };
+  auto prune = [&](int k) {
+    return SMEM ? smem[so + m * ld + m + k] : g_p[k];
+  };
+  auto flush = [&]() {
+    if (g < 0) return;
 #pragma unroll
-    for (int i = 0; i < S; i++) cnt[i] = 0ull;
-    unsigned long long sols = 0ull;
-    T bdist = T(INFINITY);
-    T A = count_mode ? A0 : f_min(A0, group_bound());
+    for (int i = 0; i < S; i++) {
+      const int j = t + W * i;
+      if (j < mr && cnt[i]) atomicAdd(P.nodes + (size_t)g * m + j, cnt[i]);
+      cnt[i] = 0ull;
+    }
+    if (t == 0 && sols) atomicAdd(P.sols + g, sols);
+    sols = 0ull;
+  };
+  auto select = [&](int gn) {
+    if (gn == g) return;
+    flush();
+    g = gn;
+    so = g * pf;
+    g_mut = (const T *)P.mut + (size_t)g * m * m;
+    g_r = (const T *)P.rdiag + (size_t)g * m;
+    g_p = (const T *)P.prune + (size_t)g * m;
+    mr = P.m_real[g];
+    mf = (const T *)P.mut_fix + (size_t)g * m * nfix;
+    cp0 = (const T *)P.cp0 + (size_t)g * m;
+    roots_a = (const T *)P.roots_a + (size_t)g * R * nfix;
+    slot_gw = (size_t)g * P.walkers + walker;
+    bdev = (T *)P.bdev + slot_gw * m;
+    T b = T(0);
+    if (t == 0) b = ((const T *)P.bdist)[slot_gw];
+    bdist = __shfl_sync(gmask, b, 0, W);
+    const T A0 = ((const T *)P.A0)[g];
+    A = count_mode ? A0 : f_min(A0, group_bound());
+  };
+  /* a fresh root's center sums: cs = cp0 - sum_f root_f * mut_fix[:, f],
+     summed in f order (the plain version sums in the same order) */
+  auto root_sums = [&](int ridx) {
+    const T *root = roots_a + (size_t)ridx * nfix;
+#pragma unroll
+    for (int i = 0; i < S; i++) {
+      const int j = t + W * i;
+      if (j < mr) {
+        T acc = T(0);
+        for (int f = 0; f < nfix; f++)
+          acc = f_add(acc, f_mul(root[f], mf[(size_t)j * nfix + f]));
+        cs[i] = f_sub(cp0[j], acc);
+      }
+    }
+  };
 
-    for (;;) {
-      int ridx = 0;
-      if (t == 0) ridx = atomicAdd(P.cursor + g, 1);
+  if (t == 0) atomicAdd(P.busy, 1);  /* busy before it pops a root */
+  int q = 0;
+  for (;;) {
+    /* the next work item: a root of the next real problem whose queue
+       has not drained, else a donated sibling range */
+    int ridx = 0, k, top;
+    T xk, ck, pdk;
+    if (q < P.G_real) {
+      const int gq = (walker + q) % P.G_real;
+      if (t == 0) ridx = atomicAdd(P.cursor + gq, 1);
       ridx = __shfl_sync(gmask, ridx, 0, W);
-      if (ridx >= R) break;
-      const T rpd = roots_pd[ridx];
+      if (ridx >= R) {
+        q++;
+        continue;
+      }
+      select(gq);
+      const T rpd = ((const T *)P.roots_pd)[(size_t)g * R + ridx];
       if (!count_mode) A = f_min(A, group_bound());
       if (!(rpd <= A)) {
         if (t == 0) atomicMax(P.cursor + g, R);
+        q++;
+        continue;
+      }
+      root_sums(ridx);
+      k = mr - 1;
+      top = mr;
+      ck = __shfl_sync(gmask, pick(cs, k / W), k & (W - 1), W);
+      xk = cround(ck);
+      if (svp && rpd == T(0)) xk = f_max(xk, T(0));
+      pdk = rpd;
+    } else {
+      /* idle: take a ticket and stop counting as busy. The walker that
+         brings busy to 0 holds the last work: it releases every mailbox
+         (ENUM_DONE) and leaves; the others poll their ticket's mailbox
+         until a donor fills it or it is released */
+      int c = 0, last = 0;
+      if (t == 0) {
+        c = (int)(atomicAdd(P.queue, 1ull << 32) >> 32);
+        __threadfence();
+        last = atomicAdd(P.busy, -1) == 1;
+      }
+      if (__shfl_sync(gmask, last, 0, W)) {
+        release_mailboxes(P, t, W);
         break;
       }
-      /* fresh root: cs = cp0 - sum_f root_f * mut_fix[:, f], summed in f
-         order (the plain version sums in the same order) */
-      const T *root = roots_a + (size_t)ridx * nfix;
+      int got = 0;
+      if (t == 0) {
+        const int *seq = P.mailbox + 4 * (c % P.walkers);
+        unsigned ns = 64u;
+        for (;;) {
+          const int sv = vload(seq);
+          if (sv == c + 1 || sv == ENUM_DONE) {
+            got = sv != ENUM_DONE;
+            break;
+          }
+          idle_pause(ns);
+        }
+        __threadfence();
+      }
+      if (!__shfl_sync(gmask, got, 0, W)) break;
+      c = __shfl_sync(gmask, c, 0, W);
+      const int e = c % P.walkers;
+      const int *info = P.mailbox + 4 * e;
+      const T *mb = (const T *)P.mail + (size_t)e * (2 * m + 1);
+      select(vload(info + 1));
+      if (!count_mode) A = f_min(A, group_bound());
+      ridx = vload(info + 2);
+      const int jstar = vload(info + 3);
+      /* the donor's path and centers from jstar up, each thread its own
+         levels, and what their descends subtracted (w_l = x_l, or alpha_l
+         = x_l - c_l under dual) */
+      T wl[S];
 #pragma unroll
       for (int i = 0; i < S; i++) {
         const int j = t + W * i;
-        if (j < mr) {
-          T acc = T(0);
-          for (int f = 0; f < nfix; f++)
-            acc = f_add(acc, f_mul(root[f], mf[(size_t)j * nfix + f]));
-          cs[i] = f_sub(cp0[j], acc);
+        wl[i] = T(0);
+        if (j >= jstar && j < mr) {
+          x[i] = vload(mb + j);
+          pd[i] = vload(mb + m + j);  /* the center, until the sums below */
+          wl[i] = dual ? f_sub(x[i], pd[i]) : x[i];
         }
       }
-      /* the walker's registers, the same in every thread of the group:
-         level k and its x, center and partial distance; the center of
-         level k - 1 before x_k is subtracted (cn) and mu[k][k-1] (mkn),
-         which give the next descend's center without a shuffle; the
-         parent level k + 1's x, center and partial distance, which give
-         the next ascend's sibling without one. The owners' copies in x,
-         cs and pd trail them by one shuffle, off the chain of dependent
-         steps. */
-      int k = mr - 1;
-      T ck = __shfl_sync(gmask, pick(cs, k / W), k & (W - 1), W);
-      T xk = cround(ck);
-      if (svp && rpd == T(0)) xk = f_max(xk, T(0));
-      T pdk = rpd, rk = rdiag(k), pk = prune(k);
-      T cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
-      T mkn = mu(k, k - 1);
-      T xp = T(0), cp = T(0), pdp = T(0);  /* no level above the root */
-      const unsigned long long iters0 = iters;
-
-      for (;;) {
-        /* every 32 iterations: the step cap, and the shared bound */
-        if ((++iters & 31ull) == 0ull) {
-          if (iters > (unsigned long long)P.max_steps) {
-            aborted = true;
-            break;
-          }
-          if (!count_mode) A = f_min(A, group_bound());
-        }
-        const T alpha = f_sub(xk, ck);
-        const T nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
-        if (nd <= f_mul(pk, A)) {
-          put(cnt, t == (k & (W - 1)), k / W, pick(cnt, k / W) + 1ull);
-          if constexpr (EXT)
-            if (subsols && nd > T(0))
-              offer_subsol<T, S, W>(P, g, t, gmask, ridx, k, nd, xk, xk, x);
-          /* what a descend from level k subtracts: x_k, or alpha_k */
-          const T wk = dual ? alpha : xk;
-          if (k == 1) {
-            /* the whole level-0 sibling range [lo, hi] at once */
-            const T tt = f_mul(wk, mkn);
-            const T c0 = f_sub(cn, tt);
-            const T r0 = rdiag(0);
-            const T bound0 = f_mul(prune(0), A);
-            const T w = f_sqrt(f_div(f_max(f_sub(bound0, nd), T(0)), r0));
-            T lo = f_ceil(f_sub(c0, w)), hi = f_floor(f_add(c0, w));
-            /* one endpoint correction each way: the count then equals the
-               stepwise walk's per-leaf bound tests */
-            if (leaf_ok(f_add(hi, T(1)), c0, nd, r0, bound0)) hi = f_add(hi, T(1));
-            if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, T(1));
-            if (leaf_ok(f_sub(lo, T(1)), c0, nd, r0, bound0)) lo = f_sub(lo, T(1));
-            if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, T(1));
-            const bool trivial = svp && nd == T(0);
-            if (trivial) lo = f_max(lo, T(0));
-            const T n = f_max(f_add(f_sub(hi, lo), T(1)), T(0));
-            cnt[0] += t == 0 ? (unsigned long long)n : 0ull;
-            sols += (unsigned long long)(trivial ? f_max(f_sub(n, T(1)), T(0)) : n);
-            const bool have = trivial ? (hi >= T(1)) : (n > T(0));
-            if (have) {
-              const T xb = trivial ? T(1) : f_min(f_max(cround(c0), lo), hi);
-              const T ab = f_sub(xb, c0);
-              const T db = f_add(nd, f_mul(f_mul(ab, ab), r0));
-              if constexpr (EXT) if (subsols) {
-                /* level 0's record: the passing leaf with the smallest
-                   nonzero distance; past a leaf on its center, the
-                   nearer neighbour (on a tie, the one the zig-zag
-                   visits first) */
-                T xs = xb, ds = db;
-                if (!(db > T(0))) {
-                  const T d0 = (c0 >= xb) ? T(1) : T(-1);
-                  const T xa = f_add(xb, d0), xo = f_sub(xb, d0);
-                  const bool ina = xa >= lo && xa <= hi;
-                  const bool ino = xo >= lo && xo <= hi;
-                  const T da = leaf_dist(xa, c0, nd, r0);
-                  const T dz = leaf_dist(xo, c0, nd, r0);
-                  xs = ina && (!ino || da <= dz) ? xa : xo;
-                  ds = ina && (!ino || da <= dz) ? da : ino ? dz : T(0);
-                }
-                if (ds > T(0))
-                  offer_subsol<T, S, W>(P, g, t, gmask, ridx, 0, ds, xs, xk, x);
-              }
-              if (db < bdist) {
-                bdist = db;
+      /* the center sums of rows below jstar as a fresh descent along the
+         donor's path computes them: the root's sums, then w_l mu[l][j]
+         subtracted for l = mr - 1 down to jstar + 1; rows from jstar up
+         are the donor's */
+      root_sums(ridx);
+      for (int l = mr - 1; l > jstar; l--) {
+        const T w = __shfl_sync(gmask, pick(wl, l / W), l & (W - 1), W);
 #pragma unroll
-                for (int i = 0; i < S; i++) {
-                  const int j = t + W * i;
-                  if (j < mr) bdev[j] = j == 0 ? xb : j == 1 ? xk : x[i];
-                }
-                if (t == 0) {
-                  ((T *)P.bdist)[slot_gw] = db;
-                  P.bri[slot_gw] = ridx;
-                }
-              }
-              if (!count_mode && db < A) {
-                A = db;
-                if (t == 0) lower_bound(P.bound, db);
+        for (int i = 0; i < S; i++) {
+          const int j = t + W * i;
+          const T v = f_sub(cs[i], f_mul(w, mu(l, min(j, m - 1))));
+          if (j < l) cs[i] = v;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < S; i++) {
+        const int j = t + W * i;
+        if (j >= jstar && j < mr) cs[i] = pd[i];
+      }
+      k = jstar;
+      top = jstar + 1;
+      const int own = jstar & (W - 1), s = jstar / W;
+      ck = __shfl_sync(gmask, pick(cs, s), own, W);
+      pdk = vload(mb + 2 * m);
+      /* the zig-zag successor of the donor's x at jstar (x + 1 under an
+         all-zero SVP prefix) */
+      xk = next_sibling(__shfl_sync(gmask, pick(x, s), own, W), ck, pdk, svp);
+      /* every thread has read the mailbox: free it for the ticket one
+         round later, unless the launch released it meanwhile */
+      __threadfence();
+      __shfl_sync(gmask, 0, 0, W);
+      if (t == 0) atomicCAS(P.mailbox + 4 * e, c + 1, c + P.walkers);
+    }
+
+    /* the walker's registers, the same in every thread of the group:
+       level k and its x, center and partial distance; the center of
+       level k - 1 before x_k is subtracted (cn) and mu[k][k-1] (mkn),
+       which give the next descend's center without a shuffle; the parent
+       level k + 1's x, center and partial distance, which give the next
+       ascend's sibling without one. The owners' copies in x, cs and pd
+       trail them by one shuffle, off the chain of dependent steps. */
+    T rk = rdiag(k), pk = prune(k);
+    T cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
+    T mkn = mu(k, k - 1);
+    T xp = T(0), cp = T(0), pdp = T(0);  /* no ascend above the item */
+    const unsigned long long iters0 = iters;
+
+    for (;;) {
+      /* every 32 iterations: the step cap, the shared bound, and a
+         request for work, answered with the sibling range of the top
+         level this walker still owns */
+      if ((++iters & 31ull) == 0ull) {
+        if (iters > (unsigned long long)P.max_steps) {
+          /* stop: no more work to give, and every idle walker leaves */
+          aborted = true;
+          if (t == 0) {
+            atomicExch(P.aborted, 1);
+            atomicAdd(P.busy, -1);
+          }
+          release_mailboxes(P, t, W);
+          break;
+        }
+        if (!count_mode) A = f_min(A, group_bound());
+        if (top - 1 > k) {
+          /* one claim per check: a request waits (tickets issued above
+             served) and the CAS takes the next one. The adoptee counts as
+             busy from the claim on (the donor's own count keeps busy above
+             0 until then) */
+          int h = -1;
+          if (t == 0) {
+            const unsigned long long qv = vload(P.queue);
+            if ((unsigned)qv < (unsigned)(qv >> 32) &&
+                atomicCAS(P.queue, qv, qv + 1ull) == qv) {
+              h = (int)(unsigned)qv;
+              atomicAdd(P.busy, 1);
+              /* the mailbox is free once its last reader released it */
+              const int *seq = P.mailbox + 4 * (h % P.walkers);
+              int sv;
+              while ((sv = vload(seq)) != h && sv != ENUM_DONE) spin_pause();
+              if (sv == ENUM_DONE) {
+                atomicAdd(P.busy, -1);
+                h = -1;
               }
             }
-            /* the stepwise walk descends to level 0 and restores on the
-               way back up; repeat that round trip so later centers round
-               alike */
-            cn = f_add(c0, tt);
-            cs[0] = t == 0 ? cn : cs[0];
+          }
+          h = __shfl_sync(gmask, h, 0, W);
+          if (h >= 0) {
+            const int e = h % P.walkers, jstar = top - 1;
+            int *info = P.mailbox + 4 * e;
+            T *mb = (T *)P.mail + (size_t)e * (2 * m + 1);
+#pragma unroll
+            for (int i = 0; i < S; i++) {
+              const int j = t + W * i;
+              if (j >= jstar && j < mr) {
+                mb[j] = x[i];
+                mb[m + j] = cs[i];
+                if (j == jstar) mb[2 * m] = pd[i];
+              }
+            }
+            if (t == 0) {
+              info[1] = g;
+              info[2] = ridx;
+              info[3] = jstar;
+            }
+            __threadfence();
+            __shfl_sync(gmask, 0, 0, W);  /* every owner has written */
+            int sent = 0;
+            if (t == 0) {
+              sent = atomicCAS(info, h, h + 1) == h;
+              if (!sent) atomicAdd(P.busy, -1);  /* released meanwhile */
+            }
+            if (__shfl_sync(gmask, sent, 0, W)) {
+              top = jstar;
+              donated++;
+            }
+          }
+        }
+      }
+      const T alpha = f_sub(xk, ck);
+      const T nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
+      if (nd <= f_mul(pk, A)) {
+        put(cnt, t == (k & (W - 1)), k / W, pick(cnt, k / W) + 1ull);
+        if constexpr (EXT)
+          if (subsols && nd > T(0))
+            offer_subsol<T, S, W>(P, g, t, gmask, ridx, k, nd, xk, xk, x);
+        /* what a descend from level k subtracts: x_k, or alpha_k */
+        const T wk = dual ? alpha : xk;
+        if (k == 1) {
+          /* the whole level-0 sibling range [lo, hi] at once */
+          const T tt = f_mul(wk, mkn);
+          const T c0 = f_sub(cn, tt);
+          const T r0 = rdiag(0);
+          const T bound0 = f_mul(prune(0), A);
+          const T w = f_sqrt(f_div(f_max(f_sub(bound0, nd), T(0)), r0));
+          T lo = f_ceil(f_sub(c0, w)), hi = f_floor(f_add(c0, w));
+          /* one endpoint correction each way: the count then equals the
+             stepwise walk's per-leaf bound tests */
+          if (leaf_ok(f_add(hi, T(1)), c0, nd, r0, bound0)) hi = f_add(hi, T(1));
+          if (!leaf_ok(hi, c0, nd, r0, bound0)) hi = f_sub(hi, T(1));
+          if (leaf_ok(f_sub(lo, T(1)), c0, nd, r0, bound0)) lo = f_sub(lo, T(1));
+          if (!leaf_ok(lo, c0, nd, r0, bound0)) lo = f_add(lo, T(1));
+          const bool trivial = svp && nd == T(0);
+          if (trivial) lo = f_max(lo, T(0));
+          const T n = f_max(f_add(f_sub(hi, lo), T(1)), T(0));
+          cnt[0] += t == 0 ? (unsigned long long)n : 0ull;
+          sols += (unsigned long long)(trivial ? f_max(f_sub(n, T(1)), T(0)) : n);
+          const bool have = trivial ? (hi >= T(1)) : (n > T(0));
+          if (have) {
+            const T xb = trivial ? T(1) : f_min(f_max(cround(c0), lo), hi);
+            const T ab = f_sub(xb, c0);
+            const T db = f_add(nd, f_mul(f_mul(ab, ab), r0));
+            if constexpr (EXT) if (subsols) {
+              /* level 0's record: the passing leaf with the smallest
+                 nonzero distance; past a leaf on its center, the
+                 nearer neighbour (on a tie, the one the zig-zag
+                 visits first) */
+              T xs = xb, ds = db;
+              if (!(db > T(0))) {
+                const T d0 = (c0 >= xb) ? T(1) : T(-1);
+                const T xa = f_add(xb, d0), xo = f_sub(xb, d0);
+                const bool ina = xa >= lo && xa <= hi;
+                const bool ino = xo >= lo && xo <= hi;
+                const T da = leaf_dist(xa, c0, nd, r0);
+                const T dz = leaf_dist(xo, c0, nd, r0);
+                xs = ina && (!ino || da <= dz) ? xa : xo;
+                ds = ina && (!ino || da <= dz) ? da : ino ? dz : T(0);
+              }
+              if (ds > T(0))
+                offer_subsol<T, S, W>(P, g, t, gmask, ridx, 0, ds, xs, xk, x);
+            }
+            if (db < bdist) {
+              bdist = db;
+#pragma unroll
+              for (int i = 0; i < S; i++) {
+                const int j = t + W * i;
+                if (j < mr) bdev[j] = j == 0 ? xb : j == 1 ? xk : x[i];
+              }
+              if (t == 0) {
+                ((T *)P.bdist)[slot_gw] = db;
+                P.bri[slot_gw] = ridx;
+              }
+            }
+            if (!count_mode && db < A) {
+              A = db;
+              if (t == 0) lower_bound(P.bound, db);
+            }
+          }
+          /* the stepwise walk descends to level 0 and restores on the
+             way back up; repeat that round trip so later centers round
+             alike */
+          cn = f_add(c0, tt);
+          cs[0] = t == 0 ? cn : cs[0];
+          xk = next_sibling(xk, ck, pdk, svp);
+        } else {
+          /* the child's center: the owner's cs[k-1] after a descend */
+          const T cc = f_sub(cn, f_mul(wk, mkn));
+          /* the barren-descend lookahead (f32 primal): the child's step
+             would test its nearest integer first; where that fails the
+             child's bound, step to the next sibling now, skipping the
+             descend and its restore */
+          bool skip = false;
+          if constexpr (!EXT) {
+            T xf = cround(cc);
+            if (svp && nd == T(0)) xf = f_max(xf, T(0));
+            const T af = f_sub(xf, cc);
+            skip = f_add(nd, f_mul(f_mul(af, af), rdiag(k - 1))) >
+                   f_mul(prune(k - 1), A);
+          }
+          if (skip) {
+            barren++;
             xk = next_sibling(xk, ck, pdk, svp);
           } else {
             /* descend: the owners subtract w_k mu[k][j] from cs[j], j < k */
@@ -540,7 +830,7 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
             cp = ck;
             pdp = pdk;
             --k;
-            ck = f_sub(cn, f_mul(wk, mkn));  /* = the owner's new cs[k] */
+            ck = cc;
             xk = cround(ck);
             pdk = nd;
             rk = rdiag(k);
@@ -548,48 +838,44 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
             cn = __shfl_sync(gmask, pick(cs, (k - 1) / W), (k - 1) & (W - 1), W);
             mkn = mu(k, k - 1);
           }
-        } else {
-          /* ascend: the owners restore cs[j], j < k + 1, with what the
-             descend from level k + 1 subtracted */
-          if (++k >= mr) break;
-          const T wp = dual ? f_sub(xp, cp) : xp;
+        }
+      } else {
+        /* ascend: the owners restore cs[j], j < k + 1, with what the
+           descend from level k + 1 subtracted; the item ends at top */
+        if (++k >= top) break;
+        const T wp = dual ? f_sub(xp, cp) : xp;
 #pragma unroll
-          for (int i = 0; i < S; i++) {
-            const int j = t + W * i;
-            const T v = f_add(cs[i], f_mul(wp, mu(k, min(j, m - 1))));
-            if (j < k) cs[i] = v;
-          }
-          mkn = mu(k, k - 1);
-          cn = f_add(ck, f_mul(wp, mkn));  /* = the owner's restored cs[k-1] */
-          xk = next_sibling(xp, cp, pdp, svp);
-          ck = cp;
-          pdk = pdp;
-          rk = rdiag(k);
-          pk = prune(k);
-          if (k + 1 < mr) {
-            const int own = (k + 1) & (W - 1), s = (k + 1) / W;
-            xp = __shfl_sync(gmask, pick(x, s), own, W);
-            pdp = __shfl_sync(gmask, pick(pd, s), own, W);
-            cp = __shfl_sync(gmask, pick(cs, s), own, W);
-          }
+        for (int i = 0; i < S; i++) {
+          const int j = t + W * i;
+          const T v = f_add(cs[i], f_mul(wp, mu(k, min(j, m - 1))));
+          if (j < k) cs[i] = v;
+        }
+        mkn = mu(k, k - 1);
+        cn = f_add(ck, f_mul(wp, mkn));  /* = the owner's restored cs[k-1] */
+        xk = next_sibling(xp, cp, pdp, svp);
+        ck = cp;
+        pdk = pdp;
+        rk = rdiag(k);
+        pk = prune(k);
+        if (k + 1 < top) {
+          const int own = (k + 1) & (W - 1), s = (k + 1) / W;
+          xp = __shfl_sync(gmask, pick(x, s), own, W);
+          pdp = __shfl_sync(gmask, pick(pd, s), own, W);
+          cp = __shfl_sync(gmask, pick(cs, s), own, W);
         }
       }
-      if (iters - iters0 > longest_root) longest_root = iters - iters0;
-      if (aborted) break;
     }
-
-#pragma unroll
-    for (int i = 0; i < S; i++) {
-      const int j = t + W * i;
-      if (j < mr && cnt[i]) atomicAdd(P.nodes + (size_t)g * m + j, cnt[i]);
-    }
-    if (t == 0 && sols) atomicAdd(P.sols + g, sols);
+    if (iters - iters0 > longest_item) longest_item = iters - iters0;
+    if (aborted) break;
   }
 
+  flush();
   if (t == 0) {
     atomicMax(P.steps, iters);
-    atomicMax(P.root_steps, longest_root);
-    if (aborted) atomicExch(P.aborted, 1);
+    atomicMax(P.root_steps, longest_item);
+    atomicAdd(P.walk_steps, iters);
+    if (donated) atomicAdd(P.donations, (unsigned long long)donated);
+    if (barren) atomicAdd(P.barren_skips, (unsigned long long)barren);
   }
 }
 

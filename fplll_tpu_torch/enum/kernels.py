@@ -20,7 +20,17 @@ A wrapper given CUDA tensors launches the kernel or raises; given CPU
 tensors it runs the plain PyTorch version, a vectorized port of the
 lockstep step of `tpu._make_step`/`_enum_run` (SVP/CVP, count and search
 mode; enum_run also in f64, with the dual recurrence and with per-level
-sub-solutions). Nothing on the card's path calls the plain version.
+sub-solutions), with the Pallas kernel's barren-descend lookahead in its
+f32 primal forms as in the kernel's. Nothing on the card's path calls the
+plain version.
+
+Once the root queues have drained, the kernel's idle walkers take the
+top-level sibling ranges of busy ones (the Pallas kernel's top-sibling
+donation). Counts then equal the plain version's to the tolerance of
+tests/test_pallas_parity.py, and exactly where a launch donated nothing
+or the walk is exact in f32 (tests/test_torch_donation.py). The wrappers
+return the walk's counters: steps, root_steps (the longest work item),
+walk_steps, donations and barren_skips.
 
 Geometry: the kernel's walkers are groups of W threads (the source's
 ENUM_WIDTH, a compile-time constant) on a persistent grid that the
@@ -93,8 +103,9 @@ class _EnumParams(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in (
         "mut", "rdiag", "prune", "mut_fix", "cp0", "roots_x", "roots_a",
         "roots_pd", "A0", "m_real", "cursor", "bound", "bdist", "bdev", "bri",
-        "nodes", "sols", "steps", "root_steps", "aborted", "ss_dist",
-        "ss_vec", "ss_root", "ss_lock")] + \
+        "nodes", "sols", "steps", "root_steps", "walk_steps", "donations",
+        "barren_skips", "aborted", "queue", "busy", "mailbox", "mail",
+        "ss_dist", "ss_vec", "ss_root", "ss_lock")] + \
         [("max_steps", ctypes.c_longlong)] + \
         [(name, ctypes.c_int) for name in (
             "G", "G_real", "m", "nfixp", "R", "walkers", "is_svp",
@@ -219,7 +230,19 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
         "sols": torch.zeros(G, dtype=torch.int64, device=dev),
         "steps": torch.zeros(1, dtype=torch.int64, device=dev),
         "root_steps": torch.zeros(1, dtype=torch.int64, device=dev),
+        "walk_steps": torch.zeros(1, dtype=torch.int64, device=dev),
+        "donations": torch.zeros(1, dtype=torch.int64, device=dev),
+        "barren_skips": torch.zeros(1, dtype=torch.int64, device=dev),
         "aborted": torch.zeros(1, dtype=i32, device=dev),
+        # the donation's requests, busy count and mailboxes: each mailbox's
+        # sequence word starts at its index, its values are written before
+        # they are read
+        "queue": torch.zeros(1, dtype=torch.int64, device=dev),
+        "busy": torch.zeros(1, dtype=i32, device=dev),
+        "mailbox": torch.stack([torch.arange(walkers, dtype=i32, device=dev)]
+                               + [torch.zeros(walkers, dtype=i32,
+                                              device=dev)] * 3, dim=1),
+        "mail": torch.empty((walkers, 2 * m + 1), dtype=ft, device=dev),
     }
     if findsubsols:
         # the records start at r_kk (evaluator.h:36-56); root -1: none
@@ -234,8 +257,9 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
                     ("roots_pd", roots_pd), ("A0", A0), ("m_real", m_real)):
         setattr(p, name, t.data_ptr())
     for name in ("cursor", "bound", "bdist", "bdev", "bri", "nodes", "sols",
-                 "steps", "root_steps", "aborted", "ss_dist", "ss_vec",
-                 "ss_root", "ss_lock"):
+                 "steps", "root_steps", "walk_steps", "donations",
+                 "barren_skips", "aborted", "queue", "busy", "mailbox",
+                 "mail", "ss_dist", "ss_vec", "ss_root", "ss_lock"):
         if name in out:
             setattr(p, name, out[name].data_ptr())
     p.max_steps = int(max_steps)
@@ -285,6 +309,16 @@ def _raise_if_aborted(out: dict, max_steps: int) -> None:
                            f"{max_steps} nodes; raise max_steps")
 
 
+def _walk_counters(out: dict) -> dict:
+    """The walk's counters of one launch: steps (the longest walk of a
+    walker), root_steps (the longest walk of one work item, a root or a
+    donated sibling range), walk_steps (every walker's iterations, so
+    that the walkers' busy share is walk_steps / (walkers x steps)),
+    donations and barren_skips."""
+    return {k: out[k][0] for k in ("steps", "root_steps", "walk_steps",
+                                   "donations", "barren_skips")}
+
+
 def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
                      walkers: int, max_steps: int) -> dict:
     """The K = min(walkers, 128) best walkers and the problem's totals
@@ -304,8 +338,7 @@ def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
         "sol_count": out["sols"][0],
         "A": float(A0) if count_mode else bound,
         "cursor": torch.clamp(out["cursor"][0], max=R),
-        "steps": out["steps"][0],
-        "root_steps": out["root_steps"][0],
+        **_walk_counters(out),
         "geometry": out.get("geometry"),
     }
     if "ss_dist" in out:
@@ -334,8 +367,7 @@ def _finalize_grouped(out: dict, roots_x, A0, *, walkers: int,
         "nodes": out["nodes"].sum(dim=0),
         "A": torch.clamp(A0, max=out["bound"][0]),
         "bound": out["bound"][0],
-        "steps": out["steps"][0],
-        "root_steps": out["root_steps"][0],
+        **_walk_counters(out),
         "geometry": out.get("geometry"),
     }
 
@@ -362,9 +394,11 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
     `findsubsols` adds the per-level best partials subsol_dist (m,),
     subsol_vec (m, m) and subsol_root (m, nfix). Returns nodes (m,)
     int64, best_dist (K,), best_dev (K, m), best_root (K, nfix),
-    sol_count, A, cursor and steps (the lockstep steps of the plain
-    version; the longest walker walk of the kernel, which also returns
-    root_steps, the longest walk under one root, and its geometry).
+    sol_count, A, cursor, steps (the lockstep steps of the plain
+    version; the longest walker walk of the kernel) and barren_skips;
+    the kernel also returns root_steps (the longest walk of one work
+    item, a root or a donated sibling range), walk_steps, donations and
+    its geometry.
 
     `batch` is the plain version's lane count (the caller also sized the
     root queue from it); on the card the launch geometry sets the
@@ -495,7 +529,8 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     fresh root feeds the center sums (alpha for dual; None: roots_x);
     `roots_x` are the reported coordinates. `findsubsols` also returns
     the per-level best partials: subsol_dist (m,), subsol_vec (m, m) and
-    subsol_root (m, nfix)."""
+    subsol_root (m, nfix). The f32 primal form skips barren descends
+    (barren_skips: how many)."""
     dev, ft = mut.device, mut.dtype
     B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
     if R == 0:
@@ -557,6 +592,16 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     cursor_host = B
     check_every = 1 if dev.type == "cpu" else 32
     steps = 0
+    barren_skips = torch.zeros((), dtype=torch.int64, device=dev)
+    # the f32 primal trees (the "single" and "grouped" forms) run the
+    # Pallas kernel's barren-descend lookahead, as the CUDA kernel's f32
+    # primal instances do. A barren node's sibling step takes the next
+    # lockstep step, the one its failing child's test would have taken,
+    # so that the steps at which a search's bound falls stay those of the
+    # walk without it (tpu._enum_run's): a lane marked `pending` tests
+    # nothing in that step, it only moves to the sibling
+    lookahead = _form(ft, dual, findsubsols) == "single"
+    pending = torch.zeros(B, dtype=torch.bool, device=dev)
 
     while steps < max_steps:
         if steps % check_every == 0:
@@ -573,7 +618,8 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         rk, prk = rdiag[kc], prune[kc]
         alpha = xk - ck
         newdist = pdk + alpha * alpha * rk
-        ok = active & (newdist <= prk * A)
+        tested = active & ~pending
+        ok = tested & (newdist <= prk * A)
         at_bottom = kc == 0
         nontrivial = newdist > 0 if is_svp else torch.ones_like(ok)
         sol_found = ok & at_bottom & nontrivial
@@ -603,8 +649,26 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                                       subsol_root)
 
         descend = ok & ~at_bottom
-        below_k = cols[None, :] < kc[:, None]
         wk = alpha if dual else xk
+        barren = torch.zeros_like(ok)
+        if lookahead:
+            # the barren-descend lookahead (pallas_kernel.py:349-366): a
+            # passing node above level 1 whose nearest child already fails
+            # the child's bound steps to its next sibling instead of
+            # descending, skipping the descend's subtract and the ascend's
+            # restore (the kernel's level 1 absorbs level 0 instead)
+            kdn = torch.clamp(kc - 1, min=0)
+            c_child = cs.gather(1, kdn[:, None])[:, 0] - xk * mut_t[kc, kdn]
+            x_first = _cround(c_child)
+            if is_svp:
+                x_first = torch.where(newdist == 0,
+                                      torch.clamp(x_first, min=0.0), x_first)
+            a_dn = x_first - c_child
+            barren = descend & (kc >= 2) & (
+                newdist + a_dn * a_dn * rdiag[kdn] > prune[kdn] * A)
+            descend = descend & ~barren
+            barren_skips = barren_skips + barren.sum()
+        below_k = cols[None, :] < kc[:, None]
         cs = cs - torch.where(descend[:, None] & below_k,
                               wk[:, None] * mut_t[kc], zero)
         k_down = kc - 1
@@ -620,8 +684,9 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
             descend[:, None] & (pd_cols[None, :] == k_down[:, None]),
             newdist[:, None], partdist)
 
-        fail = active & ~ok
-        sib = (ok & at_bottom) | fail
+        fail = tested & ~ok
+        sib = (ok & at_bottom) | fail | pending
+        pending = barren
         k_sib = torch.where(fail, kc + 1, kc)
         lane_done = fail & (k_sib >= m)
         do_sib = sib & ~lane_done
@@ -682,6 +747,7 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
         "A": A,
         "cursor": cursor,
         "steps": steps,
+        "barren_skips": int(barren_skips),
     }
     if findsubsols:
         out.update(subsol_dist=subsol_dist, subsol_vec=subsol_vec,
@@ -699,7 +765,7 @@ def enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
     shared = found = float("inf")
     dist, devs, roots, As = [], [], [], []
     nodes = torch.zeros(m, dtype=torch.int64, device=mut.device)
-    steps = 0
+    steps = barren_skips = 0
     for g in range(G):
         A_g = min(float(A0[g]), shared)
         out = enum_run_plain(mut[g], rdiag[g], prune[g], mut_fix[g], cp0[g],
@@ -715,7 +781,9 @@ def enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0, roots_x,
         As.append(out["A"])
         nodes += out["nodes"]
         steps += out["steps"]
+        barren_skips += out["barren_skips"]
     return {"dist": torch.stack(dist), "dev": torch.stack(devs),
             "root": torch.stack(roots), "nodes": nodes,
             "A": torch.stack(As),
-            "bound": torch.tensor(found, dtype=torch.float32), "steps": steps}
+            "bound": torch.tensor(found, dtype=torch.float32), "steps": steps,
+            "barren_skips": barren_skips}

@@ -502,9 +502,12 @@ def mesh_enumerate_trials(mesh: EnumMesh, muts, rdiags, prunes, maxdists,
     idle.
 
     muts (G, d, d) transposed-upper mu per trial, rdiags/prunes (G, d),
-    maxdists (G,) in one common normalized scale. The trees run in f32
-    with the window path's 1e-5 bound slack (dtype None or float32; the
-    JAX package's default f64 and its "dd32" run the f64 tree). Raises
+    maxdists (G,) in one common normalized scale. The trees run in f64,
+    as the JAX package's default (dtype None, float64 or its "dd32"), or
+    in f32 with the window path's 1e-5 bound slack (float32). Each sweep
+    is sized from the longest walk of a walker in the last one, which the
+    kernel's donation shortens as it spreads a root over idle walkers;
+    the sizing reads only that walk. Raises
     MeshDecline (a ValueError) when G exceeds the mesh size or a window
     is taller than the kernel. Returns (dists, sols, nodes): dists[g] the
     best squared distance of trial g's own walk (inf if its shard found
@@ -520,7 +523,7 @@ def mesh_enumerate_trials(mesh: EnumMesh, muts, rdiags, prunes, maxdists,
     if G > mesh.size:
         raise MeshDecline(f"{G} trials > {mesh.size} mesh shards; batch the "
                           "trials")
-    dtype = _tree_dtype(dtype, torch.float32)
+    dtype = _tree_dtype(dtype, torch.float64)
     slack = 1.0 + 1e-5 if dtype == torch.float32 else 1.0
     helper = DeviceEnumerator(batch=batch_per_device,
                               target_root_factor=target_root_factor,

@@ -66,31 +66,30 @@ inline long long __double_as_longlong(double f) {
 }
 
 /* all fibers of a launch share one OS thread, and switch only inside
-   __syncthreads and __shfl_sync: a read-modify-write cannot interleave */
-template <typename T> inline T atomicAdd(T *p, T v) {
-  const T old = *p;
-  *p = old + v;
+   __syncthreads, __shfl_sync and spin_pause: a read-modify-write cannot
+   interleave. One that changes memory counts as progress for the
+   emulation's deadlock check (a walker that publishes work and then
+   waits has moved the launch on) */
+void emu_progress();
+template <typename T> inline T emu_store(T *p, T old, T v) {
+  if (v != old) {
+    *p = v;
+    emu_progress();
+  }
   return old;
+}
+template <typename T> inline T atomicAdd(T *p, T v) {
+  return emu_store(p, *p, *p + v);
 }
 template <typename T> inline T atomicMax(T *p, T v) {
-  const T old = *p;
-  if (old < v) *p = v;
-  return old;
+  return emu_store(p, *p, *p < v ? v : *p);
 }
 template <typename T> inline T atomicMin(T *p, T v) {
-  const T old = *p;
-  if (v < old) *p = v;
-  return old;
+  return emu_store(p, *p, v < *p ? v : *p);
 }
-inline int atomicExch(int *p, int v) {
-  const int old = *p;
-  *p = v;
-  return old;
-}
-inline int atomicCAS(int *p, int cmp, int v) {
-  const int old = *p;
-  if (old == cmp) *p = v;
-  return old;
+inline int atomicExch(int *p, int v) { return emu_store(p, *p, v); }
+template <typename T> inline T atomicCAS(T *p, T cmp, T v) {
+  return emu_store(p, *p, *p == cmp ? v : *p);
 }
 /* one OS thread: every store is visible to the next fiber that runs */
 inline void __threadfence() {}

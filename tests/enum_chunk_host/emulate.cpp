@@ -6,8 +6,10 @@
    (a barrier of its shuffle segment, with warp-synchronous semantics:
    each thread of the segment deposits its value, then each reads its
    source's). So walkers of different blocks interleave at every shuffle.
-   A walker waiting for a sub-solution record's lock (spin_pause) lets
-   the others run, and counts as no progress. Control flow that is not
+   A walker waiting for a sub-solution record's lock, for work from a
+   donor or for a mailbox to come free (spin_pause) lets the others run,
+   and counts as no progress; an atomic that changes memory counts as
+   progress. Control flow that is not
    uniform within a walker is reported, not run: a shuffle whose partners called it from different source lines,
    and a thread that leaves while the rest of its segment waits in a
    shuffle (a deadlock). x86-64 only (a small hand-written context
@@ -146,6 +148,8 @@ T shuffle(unsigned mask, T v, int src, int w, int line) {
 
 void *dynamic_smem() { return L->smem[blockIdx.x].data(); }
 void spin_pause() { yield(); }
+void idle_pause(unsigned &) { yield(); }
+void emu_progress() { L->progress = true; }
 void __syncthreads() { wait(L->blocks[blockIdx.x], (int)blockDim.x); }
 float emu_shfl(unsigned mask, float v, int src, int width, int line) {
   return shuffle(mask, v, src, width, line);

@@ -71,7 +71,24 @@ def pad_problem(mut, rdiag, prune, A, batch=128, root_factor=32):
     rpd_pad[:len(roots_pd)] = roots_pd
     return dict(mut=mut_pad, rdiag=rdiag_pad, prune=prune_pad,
                 mut_fix=mut_fix_pad, cp0=np.zeros(m), rx=rx_pad,
-                rpd=rpd_pad, A=A, m=m, m_real=m_real)
+                rpd=rpd_pad, A=A, m=m, m_real=m_real, host_nodes=enum.nodes)
+
+
+def one_root_problem(mut, rdiag, prune, A):
+    """The whole tree under one zero-length root (nfix = 0, the
+    _chunk_call form): every walker but the one that pops it gets its
+    work by donation."""
+    d = len(rdiag)
+    m = ((d + 7) // 8) * 8
+    mut_pad = np.zeros((m, m))
+    mut_pad[:d, :d] = mut
+    rdiag_pad = np.full(m, 1e30)
+    rdiag_pad[:d] = rdiag
+    prune_pad = np.ones(m)
+    prune_pad[:d] = prune
+    return dict(mut=mut_pad, rdiag=rdiag_pad, prune=prune_pad,
+                mut_fix=np.zeros((m, 0)), cp0=np.zeros(m),
+                rx=np.zeros((1, 0)), rpd=np.zeros(1), A=A, m=m, m_real=d)
 
 
 def run_jax(prob, count_mode, batch=128):
@@ -106,6 +123,24 @@ def assert_best(a, b, rel):
         assert a == b
     else:
         assert abs(a - b) <= rel * abs(b), (a, b)
+
+
+def assert_counts(kn, pn, ks, ps, donations):
+    """Count mode against the plain version: exactly equal where the
+    launch donated nothing; else the tolerance of
+    tests/test_pallas_parity.py:164-175 (equal solution counts, total
+    nodes to 1%, levels above 200 nodes to 2%), since an adoptee
+    re-derives the f32 center sums below the donated level that the
+    stepwise walk carried through its round trips."""
+    assert int(ks) == int(ps)
+    if donations == 0:
+        np.testing.assert_array_equal(kn, pn)
+        return
+    kn, pn = np.asarray(kn, np.float64), np.asarray(pn, np.float64)
+    assert abs(kn.sum() - pn.sum()) <= 0.01 * pn.sum()
+    for lvl, (a, b) in enumerate(zip(kn, pn)):
+        if max(a, b) > 200:
+            assert abs(a - b) <= 0.02 * max(a, b), (lvl, a, b)
 
 
 CASES = [(d, pruned, factor) for d in (10, 16, 20, 24, 30)
@@ -333,13 +368,17 @@ def run_host_kernel(lib, t, A0, m_real, *, count_mode, G_real=1, grid=2):
     return out
 
 
-def small_problem(d, pruned, m=None):
+def small_problem(d, pruned, m=None, one_root=False):
     """The d-dimensional window of tests/test_pallas_parity.py with its
-    roots at root factor 1, and its stacked (G = 1) tensors; `m` pads the
-    height to another bucket."""
+    roots at root factor 1 (or, with `one_root`, the whole tree under one
+    root), and its stacked (G = 1) tensors; `m` pads the height to
+    another bucket."""
     prune = linear_pruning(d, d // 2) if pruned else None
     mut, rdiag, prune_v, A = build(d, 1, prune)
-    prob = pad_problem(mut, rdiag, prune_v, A, root_factor=1)
+    if one_root:
+        prob = one_root_problem(mut, rdiag, prune_v, A)
+    else:
+        prob = pad_problem(mut, rdiag, prune_v, A, root_factor=1)
     if m is not None:
         m0 = prob["m"]
         for k, fill in (("mut", 0.0), ("rdiag", 1e30), ("prune", 1.0),
@@ -377,33 +416,50 @@ def test_host_compiled_kernel_matches_plain(host_kernel, d, pruned):
         kn = res["nodes"].numpy()[:prob["m_real"]]
         pn = ref["nodes"][:prob["m_real"]]
         if count_mode:
-            np.testing.assert_array_equal(kn, pn)
+            assert_counts(kn, pn, res["sol_count"], ref["sols"],
+                          int(res["donations"]))
         else:
             assert abs(int(kn.sum()) - int(pn.sum())) <= 0.01 * pn.sum()
+    # the whole tree under one root: the other walkers work by donation
+    prob, t = small_problem(d, pruned, one_root=True)
+    pn, ps = plain_counts(d, pruned, one_root=True)
+    out = run_host_kernel(host_kernel, t, torch.full((1,), A0),
+                          torch.full((1,), d, dtype=torch.int32),
+                          count_mode=True)
+    assert int(out["donations"]) > 0
+    assert_counts(out["nodes"].numpy()[0, :d], pn, out["sols"][0], ps,
+                  int(out["donations"]))
 
 
 _PLAIN_COUNTS = {}
 
 
-def plain_counts(d, pruned):
+def plain_counts(d, pruned, one_root=False):
     """(per-level nodes below m_real, solution count) of the plain
-    version in count mode, once per problem."""
+    version in count mode, once per problem; with `one_root`, of the
+    whole tree: the host expansion's nodes above m_real."""
     if (d, pruned) not in _PLAIN_COUNTS:
         prob, _ = small_problem(d, pruned)
         ref = run_port(prob, True)
-        _PLAIN_COUNTS[d, pruned] = (ref["nodes"][:prob["m_real"]],
-                                    ref["sols"])
-    return _PLAIN_COUNTS[d, pruned]
+        mr = prob["m_real"]
+        _PLAIN_COUNTS[d, pruned] = (ref["nodes"][:mr], ref["sols"],
+                                    np.asarray(prob["host_nodes"])[mr:d])
+    nodes, sols, host = _PLAIN_COUNTS[d, pruned]
+    return (np.concatenate([nodes, host]) if one_root else nodes), sols
 
 
 def emulated_counts(lib, prob, t, *, G_real=1, grid):
+    """(per-level nodes below m_real per problem, solution counts,
+    donations) of one emulated count-mode launch."""
     A0 = torch.full((t["mut"].shape[0],), float(np.float32(prob["A"])))
     mr = torch.full((t["mut"].shape[0],), prob["m_real"], dtype=torch.int32)
     out = run_host_kernel(lib, t, A0, mr, count_mode=True, G_real=G_real,
                           grid=grid)
     assert int(out["aborted"]) == 0
-    assert 0 < int(out["root_steps"]) <= int(out["steps"])
-    return out["nodes"].numpy()[:, :prob["m_real"]], out["sols"].numpy()
+    assert 0 < int(out["root_steps"]) <= int(out["steps"]) <= \
+        int(out["walk_steps"])
+    return out["nodes"].numpy()[:, :prob["m_real"]], out["sols"].numpy(), \
+        int(out["donations"])
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -413,62 +469,75 @@ def emulated_counts(lib, prob, t, *, G_real=1, grid):
 def test_host_compiled_counts_exact_at_any_grid_and_width(
         host_build, d, pruned, grid, width):
     """Count mode at every walker width the source can be built with and
-    at a grid of 1 and of 3 blocks: per-level node counts and the solution
-    count equal the plain version's exactly, because a root's walk is the
-    same f32 arithmetic whichever walker takes it."""
-    pn, ps = plain_counts(d, pruned)
-    prob, t = small_problem(d, pruned)
-    kn, ks = emulated_counts(host_build(width), prob, t, grid=grid)
-    np.testing.assert_array_equal(kn[0], pn)
-    assert int(ks[0]) == ps
+    at a grid of 1 and of 3 blocks, on the root queue and on the whole
+    tree under one root: per-level node counts and the solution count
+    equal the plain version's exactly where the launch donated nothing
+    (a root's walk is the same f32 arithmetic whichever walker takes
+    it), else to the Pallas kernel's tolerance; the one-root tree
+    donates."""
+    for one_root in (False, True):
+        pn, ps = plain_counts(d, pruned, one_root)
+        prob, t = small_problem(d, pruned, one_root=one_root)
+        kn, ks, don = emulated_counts(host_build(width), prob, t, grid=grid)
+        assert_counts(kn[0], pn, ks[0], ps, don)
+    assert don > 0
 
 
 @pytest.mark.parametrize("m", [40, 128])
 def test_host_compiled_counts_exact_in_every_height_bucket(host_build, m):
     """The d = 30 tree padded to the M = 64 and M = 128 buckets (levels
-    above m_real are bucket padding, which the walk never enters): the
-    counts of the M = 32 run."""
-    pn, ps = plain_counts(30, False)
-    prob, t = small_problem(30, False, m=m)
-    for width in WIDTHS:
-        kn, ks = emulated_counts(host_build(width), prob, t, grid=2)
-        np.testing.assert_array_equal(kn[0], pn)
-        assert int(ks[0]) == ps
+    above m_real are bucket padding, which neither the walk nor a
+    donation enters): the counts of the M = 32 run, on the root queue
+    and under one root, which donates."""
+    for one_root in (False, True):
+        pn, ps = plain_counts(30, False, one_root)
+        prob, t = small_problem(30, False, m=m, one_root=one_root)
+        for width in WIDTHS:
+            kn, ks, don = emulated_counts(host_build(width), prob, t, grid=2)
+            assert_counts(kn[0], pn, ks[0], ps, don)
+    assert don > 0
 
 
 def test_host_compiled_counts_exact_from_global_memory(host_build):
     """Four real problems of height 128 do not fit in shared memory
     (4 x 67 KB), so the kernel reads mu, rdiag and prune from global
     memory; walkers move from problem to problem as queues drain, and
-    each problem's counts are the single problem's."""
-    pn, ps = plain_counts(30, True)
-    prob, t = small_problem(30, True, m=128)
-    t4 = {k: v.expand(4, *v.shape[1:]).contiguous() for k, v in t.items()}
-    kn, ks = emulated_counts(host_build(16), prob, t4, G_real=4, grid=1)
-    for g in range(4):
-        np.testing.assert_array_equal(kn[g], pn)
-        assert int(ks[g]) == ps
+    donations carry their problem (eight walkers: four start idle on the
+    one-root trees), and each problem's counts are the single problem's,
+    on the root queue and under one root."""
+    for one_root in (False, True):
+        pn, ps = plain_counts(30, True, one_root)
+        prob, t = small_problem(30, True, m=128, one_root=one_root)
+        t4 = {k: v.expand(4, *v.shape[1:]).contiguous() for k, v in t.items()}
+        kn, ks, don = emulated_counts(host_build(16), prob, t4, G_real=4,
+                                      grid=2)
+        for g in range(4):
+            assert_counts(kn[g], pn, ks[g], ps, don)
+    assert don > 0
 
 
 def test_host_compiled_kernel_stops_at_the_step_cap(host_kernel):
     """A walker past max_steps (checked every 32 iterations) sets the
     abort flag, and the finalize raises instead of returning a partial
-    count."""
-    prob, t = small_problem(30, False)
-    A0 = float(np.float32(prob["A"]))
-    a0 = torch.full((1,), A0)       # held: the struct keeps only pointers
-    mr = torch.full((1,), prob["m_real"], dtype=torch.int32)
-    p, out = kernels._prepare(
-        t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
-        t["rpd"], a0, mr, G_real=1, walkers=2, is_svp=True,
-        count_mode=True, max_steps=64)
+    count; also where the walkers donate (the whole tree under one root)
+    and an idle walker must leave on the flag."""
     assert host_kernel.enum_chunk_emulated_width() == 32
-    assert host_kernel.enum_chunk_emulate(ctypes.byref(p), 1,
-                                          EMU_THREADS) == 0
-    assert int(out["aborted"]) == 1 and int(out["steps"]) == 96
-    with pytest.raises(RuntimeError, match="max_steps"):
-        kernels._finalize_single(out, t["rx"][0], A0, count_mode=True,
-                                 walkers=2, max_steps=64)
+    for one_root in (False, True):
+        prob, t = small_problem(30, False, one_root=one_root)
+        A0 = float(np.float32(prob["A"]))
+        a0 = torch.full((1,), A0)   # held: the struct keeps only pointers
+        mr = torch.full((1,), prob["m_real"], dtype=torch.int32)
+        p, out = kernels._prepare(
+            t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"],
+            t["rx"], t["rpd"], a0, mr, G_real=1, walkers=2, is_svp=True,
+            count_mode=True, max_steps=64)
+        assert host_kernel.enum_chunk_emulate(ctypes.byref(p), 1,
+                                              EMU_THREADS) == 0
+        assert int(out["aborted"]) == 1 and int(out["steps"]) == 96
+        assert (int(out["donations"]) > 0) == one_root
+        with pytest.raises(RuntimeError, match="max_steps"):
+            kernels._finalize_single(out, t["rx"][0], A0, count_mode=True,
+                                     walkers=2, max_steps=64)
 
 
 def test_host_emulation_refuses_a_geometry_the_source_lacks(host_kernel):
@@ -497,7 +566,8 @@ def test_host_emulation_refuses_a_geometry_the_source_lacks(host_kernel):
 def test_host_compiled_grouped_kernel_matches_plain(host_build):
     """Grouped form: four problems (three bases of one lattice and one
     padding problem) in one launch share the bound; the union best equals
-    the plain grouped version's, and padding problems never write it."""
+    the plain grouped version's, and padding problems never write it, nor
+    receive a donated sibling range."""
     from fplll_tpu_torch.enum.device import _pack_grouped
 
     muts, rdiags, prunes, maxds, _ = rerandomized_windows(30, 3)
@@ -521,6 +591,21 @@ def test_host_compiled_grouped_kernel_matches_plain(host_build):
     assert float(out["bound"][0]) == float(res["dist"].min())
     assert float(res["bound"]) == float(res["dist"].min())
     assert float(plain["bound"]) == float(plain["dist"].min())
+    # three copies of a one-root tree and a padding problem, in count
+    # mode: walkers of one problem donate to walkers of any real problem,
+    # each real problem counts its whole tree, the padding one nothing
+    pn, ps = plain_counts(30, False, one_root=True)
+    prob, t1 = small_problem(30, False, one_root=True)
+    t4 = {k: v.expand(4, *v.shape[1:]).contiguous() for k, v in t1.items()}
+    a0 = torch.tensor([float(np.float32(prob["A"]))] * 3 + [0.0])
+    mr = torch.full((4,), prob["m_real"], dtype=torch.int32)
+    out = run_host_kernel(host_build(16), t4, a0, mr, count_mode=True,
+                          G_real=3, grid=3)
+    assert int(out["donations"]) > 0
+    for g in range(3):
+        assert_counts(out["nodes"].numpy()[g], pn, out["sols"][g], ps,
+                      int(out["donations"]))
+    assert int(out["nodes"][3].sum()) == 0 and int(out["sols"][3]) == 0
 
 
 # ---------------------------------------------------------------------------

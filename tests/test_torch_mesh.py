@@ -409,14 +409,14 @@ def rerandomized_trials(d, seed, G):
 @pytest.mark.parametrize("dtype", [None, "dd32"])
 def test_mesh_trials_match_jax(cpu_mesh, jax_mesh, dtype):
     """G = 4 trials on 4 shards: the union finds lambda_1^2, every
-    reported vector is one of its own basis with its exact norm (f32
-    trees to 2e-4, f64 to 1e-9), as on the JAX mesh; G = 5 raises
-    MeshDecline, a ValueError."""
+    reported vector is one of its own basis with its exact norm to 1e-9,
+    as on the JAX mesh: the default (dtype None) runs the f64 tree in
+    both packages, as "dd32" does; G = 5 raises MeshDecline, a
+    ValueError."""
     d, G = 24, 4
     bases, muts, rdiags, A, ref, lam2 = rerandomized_trials(d, 9, G)
     prunes, maxd = np.ones((G, d)), np.full(G, A)
-    tol = F32_TOL if dtype is None else 1e-9
-    form = "single" if dtype is None else "f64"
+    tol, form = 1e-9, "f64"
     for name, run in (("port", lambda: tmesh.mesh_enumerate_trials(
                           cpu_mesh, muts, rdiags, prunes, maxd,
                           batch_per_device=64, sync_steps=256,
