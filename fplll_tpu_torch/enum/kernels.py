@@ -49,11 +49,9 @@ counters are int64 (uint64 in the kernel), never f32.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
 from typing import Dict, Optional, Set, Tuple
 
+from .. import cuda_build
 from ..torchsetup import torch
 
 __all__ = ["enum_run", "enum_launch", "enum_collect", "enum_run_grouped",
@@ -61,9 +59,6 @@ __all__ = ["enum_run", "enum_launch", "enum_collect", "enum_run_grouped",
            "LAUNCHES", "PLAIN_RUNS", "reset_launch_counts", "MAX_LEVELS",
            "GRIDS", "FORMS"]
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG, "csrc", "enum_chunk.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "torch_kernels")
 MAX_LEVELS = 128          # ENUM_MAXM of the CUDA source
 _K_TOP = 128              # walkers kept by the finalize (tpu._enum_run)
 
@@ -122,47 +117,18 @@ class _EnumGeometry(ctypes.Structure):
 
 _LIB: Optional[ctypes.CDLL] = None
 BUILD_LOG = ""
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or os.path.join(
-        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the enumeration kernel is built "
-                           "from csrc/enum_chunk.cu with the CUDA toolkit")
-    return path
+_nvcc = cuda_build.nvcc
 
 
 def build_kernel() -> ctypes.CDLL:
-    """Compile csrc/enum_chunk.cu for sm_90a (once per source change) and
-    load it; BUILD_LOG holds the compiler's output (`-Xptxas -v`), kept
-    beside the library for later processes. Raises on a missing toolkit
-    or a failed build."""
+    """Compile csrc/enum_chunk.cu for sm_90a (once per source change, by
+    cuda_build.build) and load it; BUILD_LOG holds the compiler's output
+    (`-Xptxas -v`), kept beside the library for later processes. Raises on
+    a missing toolkit or a failed build."""
     global _LIB, BUILD_LOG
     if _LIB is not None:
         return _LIB
-    so = os.path.join(BUILD_DIR, "libenum_chunk.so")
-    log = so[:-len(".so")] + ".log"
-    if os.path.exists(so) and os.path.exists(log) and \
-            os.path.getmtime(so) >= os.path.getmtime(KERNEL_SOURCE):
-        with open(log) as f:
-            BUILD_LOG = f.read()
-    else:
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-fmad=false", "-Xptxas", "-v",
-               "-shared", "-Xcompiler", "-fPIC", "-o", tmp, KERNEL_SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True,
-                             timeout=600)
-        BUILD_LOG = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {KERNEL_SOURCE}:\n"
-                               f"{BUILD_LOG[-4000:]}")
-        with open(log, "w") as f:
-            f.write(BUILD_LOG)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(so)
+    lib, BUILD_LOG = cuda_build.build("enum_chunk")
     lib.enum_chunk_geometry.restype = ctypes.c_int
     lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(_EnumGeometry)]

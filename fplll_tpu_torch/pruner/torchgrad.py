@@ -1,38 +1,55 @@
-"""Differentiable pruning-cost gradient: torch.autograd over the polynomial
-cost (the port of the JAX package's pruner/jaxgrad.py, the SURVEY §7
-replacement of the reference's numerical log-gradient,
-fplll/pruner/pruner_cost.cpp:115-134).
+"""Differentiable pruning-cost gradient (the port of the JAX package's
+pruner/jaxgrad.py, the SURVEY §7 replacement of the reference's numerical
+log-gradient, fplll/pruner/pruner_cost.cpp:115-134): the log-target of
+the pruner's descent and its gradient with respect to the coefficients.
 
-The even-simplex relative-volume recurrence (pruner_simplex.h:28-46) runs
-batched, one row per prefix volume (jaxgrad's vmap), with the masked
-iteration count (`active = j < rd`) as a torch.where over the rows; for the
-probability metric one more row carries the shell-shrunk profile of
-svp_probability. Everything is f64 tensors on the pruner's device, and one
-backward pass yields the whole gradient (the numerical scheme needs 2(d-1)
-cost calls). The Horner loop keeps jaxgrad's order, high coefficient
-first: the recurrence cancels catastrophically as d grows, which makes the
-order of the operations, and whether a multiply-add is fused, visible in
-the result.
+On the card it is one hand-written CUDA kernel, ``csrc/pruner_grad.cu``
+(built with nvcc at first use into ``build/torch_kernels/``, launched
+through ctypes): one launch computes the log-target and its whole
+gradient, the forward recurrence and its adjoint. :func:`gradient` copies
+b, ipv and the scalars to the card in one packed copy, launches once and
+copies back d + 1 doubles. ``LAUNCHES`` counts the launches.
+
+The plain version, which CPU tensors take, is torch.autograd over the
+polynomial cost: the even-simplex relative-volume recurrence
+(pruner_simplex.h:28-46) runs batched, one row per prefix volume
+(jaxgrad's vmap), with the masked iteration count (`active = j < rd`) as
+a torch.where over the rows; for the probability metric one more row
+carries the shell-shrunk profile of svp_probability. One backward pass
+yields the whole gradient (the numerical scheme needs 2(d-1) cost calls).
+Both keep jaxgrad's Horner order, high coefficient first, one fused
+multiply-add per step: the recurrence cancels catastrophically as d
+grows, which makes the order of the operations, and whether a
+multiply-add is fused, visible in the result.
 
 For that reason the f64 gradient is trusted only up to _MAX_D; above it,
 or whenever the gradient comes back non-finite, gradient() returns None
 and the Pruner takes the numerical scheme, as with jaxgrad. A failure on
-the device (an allocation, a launch) raises: it never turns into the
-numerical scheme. The direction convention matches the numerical scheme
-(g_i ~ -2 b_i dlog(target)/db_i, last coordinate pinned).
+the device (a build, an allocation, a launch) raises: it never turns into
+the plain version or the numerical scheme. The direction convention
+matches the numerical scheme (g_i ~ -2 b_i dlog(target)/db_i, last
+coordinate pinned).
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
+from typing import Optional
 
 import numpy as np
 
+from .. import cuda_build
 from ..torchsetup import resolve_device, torch
 
-_MAX_D = 30
+_MAX_D = 30               # PRUNER_GRAD_MAX_D of the CUDA source
 _F64 = torch.float64
+
+# launches of pruner_grad_kernel, and nothing else
+LAUNCHES = 0
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG = ""
 
 
 class _Clip(torch.autograd.Function):
@@ -154,25 +171,171 @@ def _build(d: int, metric: int, symmetry_factor: float, shell_ratio: float,
     return log_target
 
 
+def build_kernel() -> ctypes.CDLL:
+    """Compile csrc/pruner_grad.cu for sm_90a (once per source change) and
+    load it; BUILD_LOG holds nvcc's output. Raises on a missing toolkit or
+    a failed build."""
+    global _LIB, BUILD_LOG
+    if _LIB is not None:
+        return _LIB
+    lib, BUILD_LOG = cuda_build.build("pruner_grad")
+    lib.pruner_grad_launch.restype = ctypes.c_int
+    lib.pruner_grad_launch.argtypes = [ctypes.c_void_p] * 3 + [
+        ctypes.c_int] * 2 + [ctypes.c_double] * 4 + [ctypes.c_void_p]
+    lib.pruner_grad_smem_bytes.restype = ctypes.c_int
+    lib.pruner_grad_smem_bytes.argtypes = [ctypes.c_int] * 2
+    lib.pruner_grad_error_string.restype = ctypes.c_char_p
+    lib.pruner_grad_error_string.argtypes = [ctypes.c_int]
+    _LIB = lib
+    return lib
+
+
+def kernel_tables(d: int) -> np.ndarray:
+    """The kernel's constant tables: fact[0..d], ballv[0..2d+1] and
+    kinv[k] = 1 / (k + 1), k = 0..d, as the plain version builds them."""
+    from .pruner import _TAB_BALL_VOL, _TAB_FACTORIAL
+
+    return np.concatenate([
+        [float(_TAB_FACTORIAL[i]) for i in range(d + 1)],
+        [float(_TAB_BALL_VOL[i]) for i in range(2 * d + 2)],
+        1.0 / np.arange(1.0, d + 2.0)])
+
+
+@lru_cache(maxsize=None)
+def _device_tables(d: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(kernel_tables(d)).to(device)
+
+
+def _prob(metric: int) -> bool:
+    from .pruner import PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+    return metric == PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+
+
+def kernel_scalars(d: int, metric: int, symmetry_factor: float,
+                   shell_ratio: float) -> tuple:
+    """The kernel's scalar arguments after d: (prob, sf, dx2, dxn, log_sf),
+    computed on the host as the plain version computes them."""
+    return (int(_prob(metric)), symmetry_factor, shell_ratio * shell_ratio,
+            shell_ratio ** (2 * d), float(np.log(symmetry_factor)))
+
+
+def _scalars_in(radius: float, target: float, preproc_cost: float,
+                metric: int) -> list:
+    """The last five doubles of the kernel's input: radius, target,
+    preproc_cost, then log1p(-target) for the probability metric (else 0)
+    and log(radius) for the expected solutions (else 0), each taken only
+    where the plain version takes it."""
+    prob = _prob(metric)
+    return [radius, target, preproc_cost,
+            math.log1p(-target) if prob else 0.0,
+            0.0 if prob else math.log(radius)]
+
+
+def pack(b, ipv, radius: float, target: float, preproc_cost: float,
+         metric: int) -> np.ndarray:
+    """The kernel's per-call input: b, ipv[:2d] and _scalars_in; 3d + 5
+    doubles."""
+    return np.concatenate([np.asarray(b, dtype=np.float64),
+                           np.asarray(ipv, dtype=np.float64),
+                           _scalars_in(radius, target, preproc_cost, metric)])
+
+
+def log_target_and_grad(inp: torch.Tensor, d: int, metric: int,
+                        symmetry_factor: float,
+                        shell_ratio: float) -> torch.Tensor:
+    """[log-target, its gradient with respect to b] (d + 1 doubles on
+    inp's device) for the packed input `inp` (see pack). On a CUDA tensor
+    one launch of the kernel, which raises when it cannot build or launch;
+    on a CPU tensor the plain version."""
+    if inp.dtype != _F64 or tuple(inp.shape) != (3 * d + 5,) or \
+            not inp.is_contiguous() or not 1 <= d <= _MAX_D:
+        raise ValueError(f"inp: expected contiguous float64 ({3 * d + 5},) "
+                         f"with 1 <= d <= {_MAX_D}, got {inp.dtype} "
+                         f"{tuple(inp.shape)}, d = {d}")
+    if inp.device.type == "cuda":
+        return _launch(inp, d, kernel_scalars(d, metric, symmetry_factor,
+                                              shell_ratio))
+    return log_target_and_grad_plain(inp, d, metric, symmetry_factor,
+                                     shell_ratio)
+
+
+def log_target_and_grad_plain(inp: torch.Tensor, d: int, metric: int,
+                              symmetry_factor: float,
+                              shell_ratio: float) -> torch.Tensor:
+    """The plain version of log_target_and_grad (torch.autograd) on inp's
+    device: what CPU tensors take, and, on the card, the yardstick the
+    kernel is held against."""
+    log_target = _build(d, metric, symmetry_factor, shell_ratio, inp.device)
+    b = inp[:d].clone().requires_grad_(True)
+    radius, target, preproc_cost = inp[3 * d:3 * d + 3].tolist()
+    with torch.enable_grad():
+        out = log_target(b, inp[d:3 * d], radius, target, preproc_cost)
+        g, = torch.autograd.grad(out, b)
+    return torch.cat([out.detach().reshape(1), g])
+
+
+def _launch(inp: torch.Tensor, d: int, scalars: tuple) -> torch.Tensor:
+    global LAUNCHES
+    lib = build_kernel()
+    tab = _device_tables(d, inp.device)
+    out = torch.empty(d + 1, dtype=_F64, device=inp.device)
+    err = lib.pruner_grad_launch(
+        tab.data_ptr(), inp.data_ptr(), out.data_ptr(), d, *scalars,
+        torch.cuda.current_stream(inp.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError("pruner_grad_kernel launch failed: " +
+                           lib.pruner_grad_error_string(err).decode())
+    LAUNCHES += 1
+    return out
+
+
+class KernelLogTarget(torch.autograd.Function):
+    """The log-target as a differentiable function of b: the forward is
+    log_target_and_grad (one launch on the card), the backward scales the
+    gradient it saved."""
+
+    @staticmethod
+    def forward(ctx, b, ipv, radius, target, preproc_cost, consts):
+        inp = torch.cat([b.detach(), ipv, b.new_tensor(_scalars_in(
+            radius, target, preproc_cost, consts[0]))])
+        res = log_target_and_grad(inp, b.shape[0], *consts)
+        ctx.save_for_backward(res[1:])
+        return res[0]
+
+    @staticmethod
+    def backward(ctx, g):
+        grad, = ctx.saved_tensors
+        return g * grad, None, None, None, None, None
+
+
+def log_target(b, ipv, radius: float, target: float, preproc_cost: float,
+               metric: int, symmetry_factor: float, shell_ratio: float):
+    """The pruning log-target of b (f64, d <= _MAX_D) through
+    KernelLogTarget, differentiable in b."""
+    return KernelLogTarget.apply(b, ipv, radius, target, preproc_cost,
+                                 (metric, symmetry_factor, shell_ratio))
+
+
 def gradient(pruner, b, device=None) -> np.ndarray | None:
     """Analytic log-target gradient in the numerical scheme's convention,
-    computed on `device` (torchsetup.resolve_device), or None where the
+    computed on `device` (torchsetup.resolve_device): one launch of the
+    kernel on the card, the plain version on the CPU; None where the
     analytic path does not apply (wrong length, too large d, non-finite
-    result). Errors on the device propagate."""
+    result). Errors on the device, a failed build among them, raise."""
     d = pruner.d
     if len(b) != d or d > _MAX_D:
         return None
     dev = resolve_device(device)
-    log_target = _build(d, int(pruner.metric), float(pruner.symmetry_factor),
-                        float(pruner.shell_ratio), dev)
+    if dev.type == "cuda":
+        build_kernel()       # before any device work: no toolkit, no call
     bn = np.asarray(b, dtype=np.float64)
-    bt = torch.tensor(bn, dtype=_F64, device=dev, requires_grad=True)
-    ipv = torch.tensor(np.asarray(pruner.ipv[:2 * d], dtype=np.float64),
-                       dtype=_F64, device=dev)
-    out = log_target(bt, ipv, float(pruner.normalized_radius),
-                     float(pruner.target), float(pruner.preproc_cost))
-    g, = torch.autograd.grad(out, bt)
-    g = g.cpu().numpy()
+    consts = (int(pruner.metric), float(pruner.symmetry_factor),
+              float(pruner.shell_ratio))
+    inp = torch.from_numpy(pack(
+        bn, pruner.ipv[:2 * d], float(pruner.normalized_radius),
+        float(pruner.target), float(pruner.preproc_cost), consts[0])).to(dev)
+    res = log_target_and_grad(inp, d, *consts).cpu().numpy()
+    g = res[1:]
     if not np.all(np.isfinite(g)):
         return None
     out = -2.0 * bn * g

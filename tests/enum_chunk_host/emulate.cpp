@@ -1,4 +1,5 @@
-/* Runs the device code of fplll_tpu_torch/csrc/enum_chunk.cu on the host.
+/* Runs the device code of fplll_tpu_torch/csrc/enum_chunk.cu on the host,
+   on the fiber runtime of fibers.h.
 
    One fiber per CUDA thread; every block of the grid is resident at once,
    and the fibers run round-robin on one OS thread. A fiber gives up the
@@ -20,203 +21,39 @@
    the source's default is the width the card runs), and loaded with
    ctypes through the same parameter struct the CUDA launcher takes.
    Test support only. */
-#include <cstdint>
-#include <cstdlib>
-#include <vector>
-
 #include "cuda_runtime.h"
 #include "../../fplll_tpu_torch/csrc/enum_chunk.cu"
-
-dim3 threadIdx, blockIdx, blockDim;
-
-/* save the callee-saved registers and the stack pointer into *save_sp,
-   then resume the context whose stack pointer is load_sp */
-extern "C" void emu_switch(void **save_sp, void *load_sp);
-asm(R"(
-    .text
-    .globl emu_switch
-    .hidden emu_switch
-    .type emu_switch, @function
-emu_switch:
-    pushq %rbp
-    pushq %rbx
-    pushq %r12
-    pushq %r13
-    pushq %r14
-    pushq %r15
-    movq %rsp, (%rdi)
-    movq %rsi, %rsp
-    popq %r15
-    popq %r14
-    popq %r13
-    popq %r12
-    popq %rbx
-    popq %rbp
-    ret
-    .size emu_switch, .-emu_switch
-)");
+#include "fibers.h"
 
 namespace {
 
-constexpr size_t kStack = 128 * 1024;
-
-/* return codes of enum_chunk_emulate */
-enum { kOk = 0, kBadLaunch = 1, kDeadlock = 2, kBadShuffle = 3,
-       kDivergent = 4 };
-
-struct Barrier {
-  int count = 0;
-  unsigned gen = 0;
-};
-
-struct Segment : Barrier {
-  uint64_t val[32];
-  int line[32];
-};
-
-struct Fiber {
-  void *sp = nullptr;
-  char *stack = nullptr;
-  unsigned tid = 0, block = 0;
-  bool done = false;
-};
-
-constexpr int width = ENUM_WIDTH;
-
-struct Launch {
+struct EnumLaunch {
   EnumKernel fn;
   EnumParams P;
-  std::vector<Fiber> fibers;
-  std::vector<Barrier> blocks;
-  std::vector<Segment> segments;
-  std::vector<std::vector<double>> smem;
-  void *sched_sp = nullptr;
-  Fiber *cur = nullptr;
-  bool progress = false;
-  int error = kOk;
 };
 
-Launch *L = nullptr;
-
-void yield() { emu_switch(&L->cur->sp, L->sched_sp); }
-
-[[noreturn]] void fail(int code) {
-  L->error = code;
-  for (;;) yield();  /* the scheduler stops and never resumes this fiber */
-}
-
-void wait(Barrier &b, int n) {
-  L->progress = true;
-  const unsigned gen = b.gen;
-  if (++b.count == n) {
-    b.count = 0;
-    b.gen++;
-    return;
-  }
-  while (b.gen == gen) yield();
-}
-
-[[noreturn]] void fiber_main() {
-  L->fn(L->P);
-  L->cur->done = true;
-  L->progress = true;
-  for (;;) yield();
-}
-
-template <typename T>
-T shuffle(unsigned mask, T v, int src, int w, int line) {
-  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "32- or 64-bit shuffles");
-  const unsigned tid = threadIdx.x, block = blockIdx.x;
-  if (w != width) fail(kBadShuffle);
-  const unsigned base = tid & 31 & ~unsigned(width - 1);
-  const unsigned want =
-      width == 32 ? 0xffffffffu : ((1u << width) - 1u) << base;
-  if (mask != want) fail(kBadShuffle);
-  Segment &s = L->segments[block * (blockDim.x / width) + tid / width];
-  std::memcpy(&s.val[tid % width], &v, sizeof(T));
-  s.line[tid % width] = line;
-  wait(s, width);
-  for (int i = 0; i < width; i++)
-    if (s.line[i] != line) fail(kDivergent);
-  T r;
-  std::memcpy(&r, &s.val[src & (width - 1)], sizeof(T));
-  wait(s, width);  /* nobody deposits the next value before all have read */
-  return r;
+void enum_body(void *arg) {
+  EnumLaunch *l = static_cast<EnumLaunch *>(arg);
+  l->fn(l->P);
 }
 
 }  // namespace
 
-void *dynamic_smem() { return L->smem[blockIdx.x].data(); }
-void spin_pause() { yield(); }
-void idle_pause(unsigned &) { yield(); }
-void emu_progress() { L->progress = true; }
-void __syncthreads() { wait(L->blocks[blockIdx.x], (int)blockDim.x); }
-float emu_shfl(unsigned mask, float v, int src, int width, int line) {
-  return shuffle(mask, v, src, width, line);
-}
-int emu_shfl(unsigned mask, int v, int src, int width, int line) {
-  return shuffle(mask, v, src, width, line);
-}
-double emu_shfl(unsigned mask, double v, int src, int width, int line) {
-  return shuffle(mask, v, src, width, line);
-}
-
 /* the walker width this build was compiled with */
-extern "C" int enum_chunk_emulated_width() { return width; }
+extern "C" int enum_chunk_emulated_width() { return ENUM_WIDTH; }
 
 /* One emulated launch of the instance for P (its height, problem count,
    element type and walk) over `grid` blocks of `threads` threads; P.walkers must be grid * threads / ENUM_WIDTH, as
-   the CUDA launcher requires. Returns 0, or one of the codes above. */
+   the CUDA launcher requires. Returns 0, or one of fibers.h's codes. */
 extern "C" int enum_chunk_emulate(const EnumParams *hp, int grid,
                                   int threads) {
-  Launch l;
-  l.P = *hp;
+  EnumLaunch l{nullptr, *hp};
   l.fn = enum_instance(l.P.m, l.P.G_real, l.P.dbl,
                        l.P.dual || l.P.findsubsols);
-  if (!l.fn || grid < 1 || threads < width ||
-      threads % 32 || threads > 1024 || l.P.G_real < 1 ||
-      l.P.G_real > l.P.G || l.P.walkers != grid * (threads / width))
-    return kBadLaunch;
-  blockDim.x = threads;
-  l.blocks.resize(grid);
-  l.segments.resize((size_t)grid * (threads / width));
-  l.smem.assign(grid, std::vector<double>(
-                          enum_smem_bytes(l.P.m, l.P.G_real,
-                                          l.P.dbl ? 8 : 4) / 8 + 1));
-  l.fibers.resize((size_t)grid * threads);
-  for (int b = 0; b < grid; b++)
-    for (int t = 0; t < threads; t++) {
-      Fiber &f = l.fibers[(size_t)b * threads + t];
-      f.block = b;
-      f.tid = t;
-      f.stack = static_cast<char *>(std::malloc(kStack));
-      void **sp = reinterpret_cast<void **>(
-          reinterpret_cast<uintptr_t>(f.stack + kStack) & ~uintptr_t(15));
-      *--sp = nullptr;                       /* fiber_main never returns */
-      *--sp = reinterpret_cast<void *>(&fiber_main);
-      for (int r = 0; r < 6; r++) *--sp = nullptr;  /* rbp rbx r12-r15 */
-      f.sp = sp;
-    }
-  L = &l;
-  for (;;) {
-    bool live = false;
-    l.progress = false;
-    for (Fiber &f : l.fibers) {
-      if (f.done) continue;
-      live = true;
-      l.cur = &f;
-      threadIdx.x = f.tid;
-      blockIdx.x = f.block;
-      emu_switch(&l.sched_sp, f.sp);
-      if (l.error != kOk) break;
-    }
-    if (l.error != kOk || !live) break;
-    if (!l.progress) {
-      l.error = kDeadlock;
-      break;
-    }
-  }
-  L = nullptr;
-  for (Fiber &f : l.fibers) std::free(f.stack);
-  return l.error;
+  if (!l.fn || threads < ENUM_WIDTH || l.P.G_real < 1 ||
+      l.P.G_real > l.P.G || l.P.walkers != grid * (threads / ENUM_WIDTH))
+    return emu::kBadLaunch;
+  return emu::run(grid, threads, ENUM_WIDTH,
+                  enum_smem_bytes(l.P.m, l.P.G_real, l.P.dbl ? 8 : 4),
+                  enum_body, &l);
 }

@@ -1,5 +1,6 @@
-"""The CUDA enumeration kernel on a card, against its plain version, and
-the pruner's gradient and the device GSO on the card against CPU tensors.
+"""The CUDA enumeration kernel on a card, against its plain version, the
+pruner's gradient kernel against its plain version on the card and on CPU
+tensors, and the device GSO on the card against CPU tensors.
 
 Every test here needs a CUDA card and skips without one (the kernel has
 no CPU build; tests/test_torch_enum_kernel.py checks its device code
@@ -341,6 +342,76 @@ def test_pruner_gradient_on_card_matches_cpu(card, d):
         g_cpu = torchgrad.gradient(p, b, device="cpu")
         err = np.linalg.norm(g_card - g_cpu) / np.linalg.norm(g_cpu)
         assert err <= tol[metric], (metric, err)
+
+
+def pruner_input(d, metric, flags=0):
+    """The profile of test_pruner_gradient_on_card_matches_cpu with flags
+    (SVP or CVP): (pruner, b, packed kernel input, consts)."""
+    from fplll_tpu_torch.defs import PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+    from fplll_tpu_torch.pruner import torchgrad
+    from fplll_tpu_torch.pruner.pruner import Pruner
+
+    n = 2 * d
+    r = [math.exp(-4 * math.log(1.012) * i) for i in range(n)]
+    gh = math.exp(sum(math.log(x) for x in r) / n - 2 * (
+        (n / 2) * math.log(math.pi) - math.lgamma(n / 2 + 1)) / n)
+    prob = metric == PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+    p = Pruner(1.1 * gh, 1e10, r, 0.5 if prob else 1.0, metric, flags)
+    b = np.linspace(0.3, 1.0, d)
+    p.enforce(b)
+    consts = (metric, float(p.symmetry_factor), float(p.shell_ratio))
+    inp = torchgrad.pack(b, p.ipv[:n], float(p.normalized_radius),
+                         float(p.target), float(p.preproc_cost), metric)
+    return p, b, torch.from_numpy(inp), consts
+
+
+PRUNER_KERNEL_TOL = {"prob": 1e-9, "expsol": 1e-10}
+
+
+@pytest.mark.parametrize("flags", [0, 1], ids=["svp", "cvp"])
+@pytest.mark.parametrize("d", [2, 5, 10, 20, 30])
+def test_pruner_kernel_matches_plain_on_card(card, d, flags):
+    """pruner_grad_kernel against the plain version (torch.autograd) on the
+    card and on CPU tensors, both metrics, norm-relative: chip_smoke.py's
+    GRAD30_TOL (the two plain versions differ by about 1e-11 at d = 30,
+    and the emulated kernel is within 2e-12 of the CPU one)."""
+    from fplll_tpu_torch.defs import (PRUNER_CVP,
+                                      PRUNER_METRIC_EXPECTED_SOLUTIONS,
+                                      PRUNER_METRIC_PROBABILITY_OF_SHORTEST)
+    from fplll_tpu_torch.pruner import torchgrad
+
+    for metric, label in ((PRUNER_METRIC_PROBABILITY_OF_SHORTEST, "prob"),
+                          (PRUNER_METRIC_EXPECTED_SOLUTIONS, "expsol")):
+        _, _, inp, consts = pruner_input(d, metric,
+                                         PRUNER_CVP if flags else 0)
+        k = torchgrad.log_target_and_grad(inp.to(card), d, *consts).cpu()
+        for ref in (torchgrad.log_target_and_grad_plain(inp.to(card), d,
+                                                        *consts).cpu(),
+                    torchgrad.log_target_and_grad(inp, d, *consts)):
+            err = float(torch.linalg.norm(k[1:] - ref[1:]) /
+                        torch.linalg.norm(ref[1:]))
+            assert err <= PRUNER_KERNEL_TOL[label], (label, err)
+            assert abs(float(k[0] - ref[0])) <= 1e-12 * abs(float(ref[0]))
+
+
+def test_pruner_kernel_same_bits_one_launch_a_call(card):
+    """Two gradients of one input are the same bits (no atomics: the rows'
+    contributions are summed in a fixed order), and each gradient on the
+    card, through torchgrad.gradient and through the pruner's descent, is
+    one launch of the kernel."""
+    from fplll_tpu_torch.defs import PRUNER_METRIC_PROBABILITY_OF_SHORTEST
+    from fplll_tpu_torch.pruner import torchgrad
+
+    p, b, _, _ = pruner_input(30, PRUNER_METRIC_PROBABILITY_OF_SHORTEST)
+    p.device = card
+    n0 = torchgrad.LAUNCHES
+    g1 = torchgrad.gradient(p, b, device=card)
+    g2 = torchgrad.gradient(p, b, device=card)
+    assert torchgrad.LAUNCHES == n0 + 2
+    assert g1.tobytes() == g2.tobytes()
+    g3 = p._gradient(b.copy())
+    assert torchgrad.LAUNCHES == n0 + 3
+    assert g3.tobytes() == g1.tobytes()
 
 
 @pytest.mark.parametrize("d", [64, 400])
