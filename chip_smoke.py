@@ -51,6 +51,13 @@ Phases (each one fails the run if it fails):
 
     python3 chip_smoke.py --mesh       # phases 1 and 7 alone (several
                                        # cards)
+    python3 chip_smoke.py --pruner-ab DIR [DIR ...]
+        # the pruner's gradient kernel of other checkouts (e.g. a `git
+        # archive` of the parent) and of this one, in turns (DIR, this,
+        # this, DIR), each in a process of its own that imports that
+        # checkout's package: its build and ptxas line, then this
+        # script's checks against the plain version and its d = 30
+        # timing, so that every checkout is measured the same way
 
 Phase 2 also holds the f64, dual and sub-solution forms of the kernel
 against the plain version.
@@ -283,10 +290,13 @@ TIMED_CASE = "queue d56"
 SHRINK_CASE = ("shrink d40 r1.3", 40, 3, 1.3)
 # search-mode nodes at most this multiple of the count-mode nodes at the
 # final bound (the walk's extra work while the bound was still falling).
-# The ratio is set by the lattice and the number of walkers, which all
-# start at the first radius, not by timing: the kernel's stays within
-# 1.36-1.42 on this lattice; a search that never lowered its bound would
-# give the start radius' 11.6
+# The ratio is set by the lattice, the number of walkers, which all start
+# at the first radius, and how soon they re-read the falling bound: on an
+# H100 at 3,168 walkers the kernel's ratio on this lattice lay within
+# 1.26-1.43 over 300 launches with the bound re-read every 4 iterations
+# (1.32-1.54, 16 launches of 300 above this limit, when it was re-read
+# every 32; tools/torch_shrink_spread.py); a search that never lowered
+# its bound would give the start radius' 11.6
 SHRINK_TOL = 1.5
 # other lattices of the shrink check's shape, whose kernel search overhead
 # is logged, not asserted: it ranges more widely than on the checked one
@@ -1516,9 +1526,167 @@ def gradient_flops(d: int, prob: bool) -> float:
 
 
 def gradient_chain(d: int) -> int:
-    """Dependent f64 operations of the longest row (rd = d): d steps of
-    d + 2 Horner multiply-adds forward, about twice that backward."""
-    return 3 * d * (d + 2)
+    """Dependent f64 operations of the longest row (rd = d) as
+    pruner_grad_kernel runs them: step j runs its band's Horner positions
+    forward (its band's last step + 2, at most PG_COEF) and one ga
+    multiply fewer backward; PG_BAND and PRUNER_GRAD_MAX_D are read from
+    the source."""
+    from fplll_tpu_torch import cuda_build
+
+    with open(os.path.join(cuda_build.CSRC, "pruner_grad.cu")) as f:
+        text = f.read()
+    band = int(re.search(r"#define PG_BAND (\d+)", text).group(1))
+    coef = int(re.search(r"#define PRUNER_GRAD_MAX_D (\d+)",
+                         text).group(1)) + 2
+    n = 0
+    for j in range(d):
+        j1 = (j // band + 1) * band
+        n += min(j1 + 1, coef) + min(j1, coef - 1)
+    return n
+
+
+# this script's own measuring aid, not a part of the port: one thread runs
+# n dependent f64 multiply-adds (x[0] <- x[0] x[1] + x[2]), so that a
+# launch's time over n is the dependent latency one link of the gradient
+# kernel's chain pays
+FMA_PROBE_CU = r"""
+__global__ void fma_probe(double *x, int n) {
+  double v = x[0];
+  const double a = x[1], c = x[2];
+#pragma unroll 16
+  for (int i = 0; i < n; ++i) v = fma(v, a, c);
+  x[0] = v;
+}
+
+extern "C" int fma_probe_launch(double *x, int n, void *stream) {
+  fma_probe<<<1, 1, 0, (cudaStream_t)stream>>>(x, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+@functools.lru_cache(maxsize=None)
+def fma_probe_lib():
+    """FMA_PROBE_CU built by the port's nvcc helper into the build
+    directory."""
+    import ctypes
+
+    from fplll_tpu_torch import cuda_build
+
+    os.makedirs(cuda_build.BUILD_DIR, exist_ok=True)
+    src = os.path.join(cuda_build.BUILD_DIR, "fma_probe.cu")
+    with open(src, "w") as f:
+        f.write(FMA_PROBE_CU)
+    lib, _ = cuda_build.build("fma_probe", src=src)
+    lib.fma_probe_launch.restype = ctypes.c_int
+    lib.fma_probe_launch.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def pruner_profile_lib():
+    """(pruner_grad.cu built with PRUNER_GRAD_PROFILE, its nvcc output):
+    the same kernel with pruner_grad_launch_clocked, for the breakdown
+    only."""
+    import ctypes
+
+    from fplll_tpu_torch import cuda_build
+
+    lib, text = cuda_build.build("pruner_grad",
+                                 defines=("PRUNER_GRAD_PROFILE",))
+    fn = lib.pruner_grad_launch_clocked
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
+        ctypes.c_double] * 4 + [ctypes.c_void_p] * 2
+    return lib, text
+
+
+def fma_latency_ns(n: int = 1 << 20) -> float:
+    """ns per dependent f64 multiply-add on the card: one thread's chain of
+    n (FMA_PROBE_CU), CUDA events, median of 3 after a warm launch. The
+    unit of the gradient kernel's chain floor."""
+    import numpy as np
+    import torch
+
+    lib = fma_probe_lib()
+    x = torch.tensor([0.5, 0.999999, 1e-6], dtype=torch.float64,
+                     device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    secs = []
+    for _ in range(4):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        assert lib.fma_probe_launch(x.data_ptr(), n, stream) == 0
+        ev1.record()
+        torch.cuda.synchronize()
+        secs.append(ev0.elapsed_time(ev1) * 1e-3)
+    assert math.isfinite(float(x[0])), x
+    return float(np.median(secs[1:])) / n * 1e9
+
+
+# pruner_grad_kernel's phases, from its PG_CLOCKS stamps (slots 0-11):
+# (name, first stamp, last stamp); warp 0's forward and warp 1's pow calls
+# run side by side
+PRUNER_PHASES = (("profiles", 0, 1), ("forward, warp 0", 1, 2),
+                 ("pow calls, warp 1", 1, 3), ("forward barrier", 1, 4),
+                 ("cost terms", 4, 5), ("scalar chain", 5, 6),
+                 ("terms' adjoint", 6, 7), ("volumes' adjoints", 7, 8),
+                 ("backward, warp 0", 8, 9), ("backward barrier", 9, 10),
+                 ("dlog/db sums", 10, 11), ("total", 0, 11))
+
+
+def pruner_kernel_phases(inp, d: int, scalars: tuple,
+                         reps: int = 20) -> dict:
+    """SM cycles of each phase of pruner_grad_kernel (PRUNER_PHASES),
+    median over `reps` launches of the PRUNER_GRAD_PROFILE build's
+    pruner_grad_launch_clocked, which stamps clock64() at the phase
+    boundaries."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.pruner import torchgrad
+
+    fn = pruner_profile_lib()[0].pruner_grad_launch_clocked
+    tab = torchgrad.kernel_tables(d)
+    tab = torch.from_numpy(tab).to(inp.device)
+    out = torch.empty(d + 1, dtype=torch.float64, device=inp.device)
+    clocks = torch.zeros((reps, 12), dtype=torch.int64, device=inp.device)
+    stream = torch.cuda.current_stream(inp.device).cuda_stream
+    for r in range(reps):
+        assert fn(tab.data_ptr(), inp.data_ptr(), out.data_ptr(), d,
+                  *scalars, clocks[r].data_ptr(), stream) == 0
+    torch.cuda.synchronize()
+    c = clocks.cpu().numpy()
+    return {name: float(np.median(c[:, b] - c[:, a]))
+            for name, a, b in PRUNER_PHASES}
+
+
+def graph_kernel_ms(fn, launches: int) -> float:
+    """Device ms per call of `fn` (one kernel launch) with the launches
+    back to back: `launches` calls captured in one CUDA graph, one replay
+    timed by CUDA events, so that the host's pace between launches is not
+    in it."""
+    import torch
+
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()                         # warm, outside the capture
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ev0 = torch.cuda.Event(enable_timing=True)
+    ev1 = torch.cuda.Event(enable_timing=True)
+    ev0.record()
+    graph.replay()
+    ev1.record()
+    torch.cuda.synchronize()
+    return ev0.elapsed_time(ev1) / launches
 
 
 def max_sm_clock_hz() -> float:
@@ -1559,6 +1727,13 @@ def gradient_kernels(fn) -> dict | None:
             "kernel_ms": {e.key: getattr(e, "device_time_total",
                                          getattr(e, "cuda_time_total", 0.0))
                           / e.count / 1e3 for e in kern[:8]}}
+
+
+def profiler_kernel_ms(card_run) -> float | None:
+    """pruner_grad_kernel's device ms in a gradient_kernels record."""
+    return next((ms for name, ms in ((card_run or {}).get("kernel_ms")
+                                     or {}).items()
+                 if "pruner_grad_kernel" in name), None)
 
 
 def gradient_profile(d: int, metric: int, device=None, flags: int = 0):
@@ -1697,8 +1872,13 @@ def pruner_kernel_checks(device, ds=GRAD_CHECK_DS) -> dict:
     """pruner_grad_kernel built from the checkout, then held against the
     plain version (torch.autograd) on the card and on CPU tensors: d in
     `ds` x both metrics x SVP/CVP symmetry, a profile whose top
-    coefficient lies on the shell's clip (its gradient's 1/2 rule), and a
-    non-finite one (gradient() returns None on the card as on the CPU)."""
+    coefficient lies on the shell's clip (its gradient's 1/2 rule), a
+    non-finite one (gradient() returns None on the card as on the CPU),
+    and one whose tiny coefficient takes the kernel's backward to the full
+    Horner length (non-finite entry by entry where the plain version
+    is). Each case also goes through torchgrad.gradient on the card, the
+    route the pruner takes (its staging buffers, one launch), against
+    the plain version in gradient()'s convention."""
     import numpy as np
     import torch
     from fplll_tpu_torch.defs import PRUNER_CVP
@@ -1733,6 +1913,19 @@ def pruner_kernel_checks(device, ds=GRAD_CHECK_DS) -> dict:
             max_abs = max(max_abs, float((k - ref).abs().max()))
             assert err <= GRAD30_TOL[label] and verr <= GRAD_VALUE_RTOL, \
                 (name, err, verr)
+        launches = torchgrad.LAUNCHES
+        g = torchgrad.gradient(p, b, device=device)
+        assert torchgrad.LAUNCHES == launches + 1
+        bn = np.asarray(b, dtype=np.float64)
+        plain_g = torchgrad.log_target_and_grad_plain(
+            inp, p.d, *consts).cpu().numpy()[1:]
+        for ref in (-2.0 * bn * plain_g,
+                    torchgrad.gradient(p, b, device="cpu")):
+            ref[-1] = 0.0
+            err = float(np.linalg.norm(g - ref) / np.linalg.norm(ref))
+            worst[label] = max(worst[label], err)
+            max_abs = max(max_abs, float(np.abs(g - ref).max()))
+            assert err <= GRAD30_TOL[label], (name, "gradient()", err)
     p, b = gradient_profile(10, metric)
     b = np.zeros(10)
     inp, consts = gradient_input(p, b, device)
@@ -1740,9 +1933,21 @@ def pruner_kernel_checks(device, ds=GRAD_CHECK_DS) -> dict:
     assert not np.isfinite(k[1:]).any(), k
     assert torchgrad.gradient(p, b, device=device) is None
     assert torchgrad.gradient(p, b, device="cpu") is None
+    # a row whose abscissae reach 1e79: the kernel's backward takes the
+    # full length there, non-finite where the plain version is
+    b = np.linspace(0.3, 1.0, 10)
+    b[2] = 1e-80
+    inp, consts = gradient_input(p, b, device)
+    k = torchgrad.log_target_and_grad(inp, 10, *consts).cpu()
+    for ref in (torchgrad.log_target_and_grad_plain(inp, 10, *consts).cpu(),
+                torchgrad.log_target_and_grad(inp.cpu(), 10, *consts)):
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(k), fin), (k, ref)
+        assert float(torch.linalg.norm(k[fin][1:] - ref[fin][1:])) <= \
+            GRAD30_TOL["probability"] * float(torch.linalg.norm(ref[fin][1:]))
     torch.cuda.synchronize()
     rec = {"first_call_ms": first_ms,
-           "cases": len(cases) + 1, "worst_rel_diff": worst,
+           "cases": len(cases) + 2, "worst_rel_diff": worst,
            "max_abs_err": max_abs}
     log("surfaces " + json.dumps({"case": "pruner_grad_kernel against the "
                                   "plain version on the card and on CPU "
@@ -1750,16 +1955,27 @@ def pruner_kernel_checks(device, ds=GRAD_CHECK_DS) -> dict:
     return rec
 
 
-def pruner_kernel_timing(device, d=30, launches=200) -> dict:
+def pruner_kernel_timing(device, d=30, launches=200,
+                         profile: bool = True) -> dict:
     """One d = 30 gradient per metric: the wrapper (torchgrad.gradient, the
     copies included, median of 20 after a warm call), the kernel alone
-    (CUDA events around `launches` back-to-back launches), the plain
+    (`kernel_ms`: CUDA events around `launches` back-to-back warm launches
+    captured in one CUDA graph; `loop_kernel_ms`: the same launches from a
+    Python loop, which the host's pace can set; `profiler_ms`: the device
+    time of the kernel in one gradient() call, torch.profiler), the plain
     version on the card and on CPU tensors (median of 5), and what one
-    call runs on the card (profiler), beside the bounds."""
+    call runs on the card, beside the operations and bytes bound. With
+    `profile` (this checkout's kernel only) also the chain floor (the
+    longest row's dependent operations at the measured latency of one),
+    ns per dependent operation and the SM cycles per phase."""
     import torch
     from fplll_tpu_torch.pruner import torchgrad
 
-    clock = max_sm_clock_hz()
+    lib = torchgrad.build_kernel()
+    if profile:
+        clock = max_sm_clock_hz()
+        latency_ns = fma_latency_ns()
+        chain = gradient_chain(d)
     out = {}
     for metric, label in metric_labels():
         p, b = gradient_profile(d, metric)
@@ -1778,7 +1994,9 @@ def pruner_kernel_timing(device, d=30, launches=200) -> dict:
             torchgrad.log_target_and_grad(inp, d, *consts)
         ev1.record()
         torch.cuda.synchronize()
-        kernel_ms = ev0.elapsed_time(ev1) / launches
+        loop_ms = ev0.elapsed_time(ev1) / launches
+        kernel_ms = graph_kernel_ms(
+            lambda: torchgrad.log_target_and_grad(inp, d, *consts), launches)
         plain = {}
         for key, dev in (("card", device), ("cpu", "cpu")):
             x = inp.to(dev)
@@ -1794,25 +2012,34 @@ def pruner_kernel_timing(device, d=30, launches=200) -> dict:
         nbytes = 8 * ((3 * d + 5) + (4 * d + 4) + (d + 1))
         ops_ms = flops / H100_F64_FLOPS * 1e3
         bytes_ms = nbytes / H100_HBM_BYTES * 1e3
-        out[label] = {
+        card_run = gradient_kernels(
+            lambda: torchgrad.gradient(p, b, device=device))
+        r = out[label] = {
             "wrapper_ms": median_ms(wrapper), "kernel_ms": kernel_ms,
+            "loop_kernel_ms": loop_ms,
+            "profiler_ms": profiler_kernel_ms(card_run),
             "plain_card_ms": plain["card"], "plain_cpu_ms": plain["cpu"],
-            "card_run": gradient_kernels(
-                lambda: torchgrad.gradient(p, b, device=device)),
+            "card_run": card_run,
             "plain_card_run_kernels": (gradient_kernels(
                 lambda: torchgrad.log_target_and_grad_plain(
                     inp, d, *consts)) or {}).get("kernels"),
             "flops": flops, "bytes": nbytes,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
-            # the longest row's dependent chain at one operation per cycle
-            # of the card's maximum SM clock: a floor, not an estimate
-            "chain_ops": gradient_chain(d),
-            "chain_bound_ms": gradient_chain(d) / clock * 1e3,
-            "max_sm_clock_mhz": clock / 1e6,
             "d": d, "rows": d + (1 if prob else 0),
-            "smem_bytes": torchgrad.build_kernel().pruner_grad_smem_bytes(
-                d, int(prob))}
+            "smem_bytes": lib.pruner_grad_smem_bytes(d, int(prob))}
+        if profile:
+            r.update({
+                "threads": lib.pruner_grad_threads(),
+                # the longest row's dependent chain at the latency of one
+                # dependent f64 multiply-add, measured on this card just
+                # now
+                "chain_ops": chain, "fma_latency_ns": latency_ns,
+                "chain_floor_ms": chain * latency_ns * 1e-6,
+                "ns_per_dependent_op": kernel_ms * 1e6 / chain,
+                "max_sm_clock_mhz": clock / 1e6,
+                "phase_cycles": pruner_kernel_phases(
+                    inp, d, torchgrad.kernel_scalars(d, *consts))})
     log("surfaces " + json.dumps({"case": f"one d = {d} gradient, kernel "
                                   "and plain version", **out}))
     for label, r in out.items():
@@ -2137,7 +2364,11 @@ def pruner_entry(surf) -> dict:
         "plain_cpu_ms": t["plain_cpu_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"],
-        "chain_bound_ms": t["chain_bound_ms"],
+        "chain_ops": t["chain_ops"],
+        "fma_latency_ns": t["fma_latency_ns"],
+        "chain_floor_ms": t["chain_floor_ms"],
+        "ns_per_dependent_op": t["ns_per_dependent_op"],
+        "profiler_ms": t["profiler_ms"],
         "library_ms": None,
         "card_kernels_per_call": (t["card_run"] or {}).get("kernels"),
         "plain_card_kernels_per_call": t["plain_card_run_kernels"],
@@ -2149,7 +2380,7 @@ def pruner_entry(surf) -> dict:
                      f"on CPU tensors at d in {list(GRAD_CHECK_DS)}, the "
                      f"log-target to {GRAD_VALUE_RTOL} relative; non-finite "
                      "where the plain version is",
-        "shape": {"d": t["d"], "rows": t["rows"], "threads": 32 * t["rows"],
+        "shape": {"d": t["d"], "rows": t["rows"], "threads": t["threads"],
                   "smem_bytes": t["smem_bytes"]},
     }
 
@@ -2452,9 +2683,11 @@ def phase_mesh(device, devices=None, batch=MESH_BATCH, count=MESH_COUNT,
 # as the source compiles them (nvcc 12.9, the flags of
 # kernels.build_kernel), with no stack frame and no spills: a change to
 # the shared walk must leave them as they are, or re-pin them here and
-# say why
+# say why ((64, True) 77 -> 80 and (128, False) 100 -> 101 when the walk
+# began to take the shared bound every 4 iterations from a load issued 4
+# iterations earlier)
 BKZ_F32_PTXAS = {(32, False): 73, (32, True): 64, (64, False): 80,
-                 (64, True): 77, (128, False): 100, (128, True): 100}
+                 (64, True): 80, (128, False): 101, (128, True): 100}
 def ptxas_instances(build_log: str) -> dict:
     """Per instance of enum_chunk_kernel (f32 primal) and
     enum_chunk_ext_kernel in nvcc's `-Xptxas -v` output: (element type, M,
@@ -2519,8 +2752,9 @@ def phase_build() -> dict:
     together), print every instance's registers, stack frame and spills,
     and assert the enumeration kernel's instance set (the six f32
     instances of BKZ-2.0, M x SMEM, and the extended walk per element type
-    and M), that none of them spills, and that the six f32 instances
-    compile to the registers of BKZ_F32_PTXAS."""
+    and M), that none of them spills, that the six f32 instances
+    compile to the registers of BKZ_F32_PTXAS, and that the pruner's
+    gradient kernel has no stack frame and no spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fplll_tpu_torch.enum import kernels
@@ -2532,16 +2766,19 @@ def phase_build() -> dict:
         return time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(4) as pool:
         futures = [pool.submit(build, fn) for fn in (
-            kernels.build_kernel, torchgrad.build_kernel)]
-        build_s, pruner_s = (f.result() for f in futures)
+            kernels.build_kernel, torchgrad.build_kernel,
+            pruner_profile_lib, fma_probe_lib)]
+        build_s, pruner_s, profile_s, probe_s = (f.result() for f in futures)
     wall = time.perf_counter() - t0
     release = subprocess.run([kernels._nvcc(), "--version"],
                              capture_output=True, text=True).stdout
-    log(f"build enum_chunk.cu and pruner_grad.cu together (nvcc "
+    log(f"build enum_chunk.cu and pruner_grad.cu together, with this "
+        f"script's PRUNER_GRAD_PROFILE build and FMA probe (nvcc "
         f"{release.strip().splitlines()[-1]}): {wall:.3f} s "
-        f"(enum_chunk {build_s:.3f} s, pruner_grad {pruner_s:.3f} s)")
+        f"(enum_chunk {build_s:.3f} s, pruner_grad {pruner_s:.3f} s, "
+        f"profile {profile_s:.3f} s, probe {probe_s:.3f} s)")
     for line in (kernels.BUILD_LOG + torchgrad.BUILD_LOG).strip().splitlines():
         log(f"  ptxas: {line.strip()}")
     inst = ptxas_instances(kernels.BUILD_LOG)
@@ -2549,8 +2786,12 @@ def phase_build() -> dict:
         "spill stores, spill loads): " + json.dumps(
             {str(k): v for k, v in sorted(inst.items())}))
     pruner_ptxas = ptxas_function(torchgrad.BUILD_LOG, "pruner_grad_kernel")
-    log(f"ptxas: pruner_grad_kernel -> {pruner_ptxas}")
+    log(f"ptxas: pruner_grad_kernel -> {pruner_ptxas} (the "
+        "PRUNER_GRAD_PROFILE build: " + str(ptxas_function(
+            pruner_profile_lib()[1], "pruner_grad_kernel")) + ")")
     assert pruner_ptxas is not None, "no pruner_grad_kernel in the build"
+    assert pruner_ptxas[1:] == (0, 0, 0), \
+        f"pruner_grad_kernel has a stack frame or spills: {pruner_ptxas}"
     bkz = {("float", M, 32, sm, False): (regs, 0, 0, 0)
            for (M, sm), regs in BKZ_F32_PTXAS.items()}
     ext = {(t, M, 32, True, True) for t in ("float", "double")
@@ -2648,6 +2889,57 @@ def contract_line() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# run by --pruner-ab in the checkout under test, whose package it imports:
+# its kernel's build, then this script's checks and timing (argv[1]), one
+# JSON line
+PRUNER_AB_RUN = """
+import importlib.util, json, sys
+sys.path.insert(0, ".")
+spec = importlib.util.spec_from_file_location("smoke", sys.argv[1])
+c = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(c)
+from fplll_tpu_torch.pruner import torchgrad
+torchgrad.build_kernel()
+ptxas = c.ptxas_function(torchgrad.BUILD_LOG, "pruner_grad_kernel")
+checks = c.pruner_kernel_checks("cuda")
+timing = c.pruner_kernel_timing("cuda", profile=False)
+print("PRUNER_AB " + json.dumps({"ptxas": ptxas, "checks": checks,
+                                 "timing": timing}), flush=True)
+"""
+
+
+def pruner_ab(others: list) -> int:
+    """--pruner-ab: the gradient kernel of the `others` checkouts and of
+    this one in turns (others, this, this, the others reversed), each a
+    process of its own in its checkout, checked and timed by this
+    script's pruner_kernel_checks and pruner_kernel_timing."""
+    runs = []
+    for tree in [*others, ROOT, ROOT, *others[::-1]]:
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", PRUNER_AB_RUN,
+                              os.path.abspath(__file__)],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=600)
+        line = next((ln for ln in res.stdout.splitlines()
+                     if ln.startswith("PRUNER_AB ")), None)
+        if res.returncode != 0 or line is None:
+            print(res.stdout[-3000:] + res.stderr[-3000:], file=sys.stderr)
+            return 1
+        rec = json.loads(line[len("PRUNER_AB "):])
+        runs.append({"tree": "this" if tree == ROOT else tree,
+                     "wall_s": time.perf_counter() - t0,
+                     "ptxas": rec["ptxas"],
+                     "max_abs_err": rec["checks"]["max_abs_err"],
+                     **{label: {k: v[k] for k in (
+                         "kernel_ms", "profiler_ms", "loop_kernel_ms",
+                         "wrapper_ms")}
+                        for label, v in rec["timing"].items()}})
+        log("pruner-ab " + json.dumps(runs[-1]))
+    log(card_line())
+    log(json.dumps({"pruner_ab": runs}))
     return 0
 
 
@@ -2793,4 +3085,6 @@ def main(mesh_only: bool = False) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--pruner-ab"] and len(sys.argv) >= 3:
+        sys.exit(pruner_ab([os.path.abspath(a) for a in sys.argv[2:]]))
     sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh"]))

@@ -128,10 +128,12 @@
  *     they fit (17 KB per problem at m = 64; row stride m + 1), else they
  *     are read from global memory (the SMEM template parameter, so that no
  *     pointer can be either); the bound is one global float, lowered with
- *     atomicMin on its bit pattern and re-read every 32 iterations (a
- *     stale read only wastes work, as on the TPU), when the step cap is
- *     checked too; counters go to uint64 globals once per walker and
- *     problem.
+ *     atomicMin on its bit pattern and re-read every 4 iterations
+ *     through a load issued 4 iterations earlier (a stale read only
+ *     wastes work, as on the TPU; a re-read every 32 iterations let
+ *     that waste vary from launch to launch once idle walkers took
+ *     donated ranges); the step cap is checked every 32 iterations;
+ *     counters go to uint64 globals once per walker and problem.
  * Without the donation one root's walk would set the launch's time (the
  * rest of the card idle); the kernel records the longest walk of a
  * walker, of one work item (a root or a donated range), the iterations
@@ -651,11 +653,19 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
     T mkn = mu(k, k - 1);
     T xp = T(0), cp = T(0), pdp = T(0);  /* no ascend above the item */
     const unsigned long long iters0 = iters;
+    /* search mode: the shared bound as thread 0 loaded it four iterations
+       ago; taking it then and issuing the next load keeps the load's
+       latency off the walk's chain */
+    T bnext = A;
 
     for (;;) {
-      /* every 32 iterations: the step cap, the shared bound, and a
-         request for work, answered with the sibling range of the top
-         level this walker still owns */
+      if (!count_mode && ((iters + 1ull) & 3ull) == 0ull) {
+        A = f_min(A, __shfl_sync(gmask, bnext, 0, W));
+        if (t == 0) bnext = load_bound<T>(P.bound);
+      }
+      /* every 32 iterations: the step cap and a request for work,
+         answered with the sibling range of the top level this walker
+         still owns */
       if ((++iters & 31ull) == 0ull) {
         if (iters > (unsigned long long)P.max_steps) {
           /* stop: no more work to give, and every idle walker leaves */
@@ -667,7 +677,6 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
           release_mailboxes(P, t, W);
           break;
         }
-        if (!count_mode) A = f_min(A, group_bound());
         if (top - 1 > k) {
           /* one claim per check: a request waits (tickets issued above
              served) and the CAS takes the next one. The adoptee counts as

@@ -38,13 +38,16 @@ def nvcc() -> str:
     return path
 
 
-def build(name: str) -> Tuple[ctypes.CDLL, str]:
-    """Compile csrc/<name>.cu into build/torch_kernels/lib<name>.so (again
-    only when the source is newer than the library) and load it: (the
-    library, nvcc's output). Raises on a missing toolkit or a failed
-    build."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    so = os.path.join(BUILD_DIR, f"lib{name}.so")
+def build(name: str, defines: Tuple[str, ...] = (),
+          src: str | None = None) -> Tuple[ctypes.CDLL, str]:
+    """Compile csrc/<name>.cu (or `src`) into build/torch_kernels/
+    lib<name>.so (again only when the source is newer than the library)
+    and load it: (the library, nvcc's output). Each macro of `defines`
+    is set with -D and names a library of its own (lib<name>-<macro>.so).
+    Raises on a missing toolkit or a failed build."""
+    src = src or os.path.join(CSRC, f"{name}.cu")
+    tag = "".join(f"-{m.lower()}" for m in defines)
+    so = os.path.join(BUILD_DIR, f"lib{name}{tag}.so")
     log = so[:-len(".so")] + ".log"
     if os.path.exists(so) and os.path.exists(log) and \
             os.path.getmtime(so) >= os.path.getmtime(src):
@@ -53,7 +56,8 @@ def build(name: str) -> Tuple[ctypes.CDLL, str]:
     else:
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        res = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+        res = subprocess.run([nvcc(), *NVCC_FLAGS,
+                              *(f"-D{m}" for m in defines), "-o", tmp, src],
                              capture_output=True, text=True, timeout=600)
         text = res.stdout + res.stderr
         if res.returncode != 0:

@@ -6,9 +6,12 @@ the pruner's descent and its gradient with respect to the coefficients.
 On the card it is one hand-written CUDA kernel, ``csrc/pruner_grad.cu``
 (built with nvcc at first use into ``build/torch_kernels/``, launched
 through ctypes): one launch computes the log-target and its whole
-gradient, the forward recurrence and its adjoint. :func:`gradient` copies
-b, ipv and the scalars to the card in one packed copy, launches once and
-copies back d + 1 doubles. ``LAUNCHES`` counts the launches.
+gradient, the forward recurrence and its adjoint. :func:`gradient` packs
+b, ipv and the scalars into a pinned host buffer, copies them to its
+device twin, launches once with the outputs in the twin and copies the
+d + 1 outputs back into the pinned buffer, all on the current stream,
+which it synchronizes once. The two buffers are made once per device and
+reused by every call. ``LAUNCHES`` counts the launches.
 
 The plain version, which CPU tensors take, is torch.autograd over the
 polynomial cost: the even-simplex relative-volume recurrence
@@ -45,6 +48,7 @@ from ..torchsetup import resolve_device, torch
 
 _MAX_D = 30               # PRUNER_GRAD_MAX_D of the CUDA source
 _F64 = torch.float64
+_IN_MAX = 3 * _MAX_D + 5  # the packed input at _MAX_D (see pack)
 
 # launches of pruner_grad_kernel, and nothing else
 LAUNCHES = 0
@@ -211,6 +215,7 @@ def _prob(metric: int) -> bool:
     return metric == PRUNER_METRIC_PROBABILITY_OF_SHORTEST
 
 
+@lru_cache(maxsize=None)
 def kernel_scalars(d: int, metric: int, symmetry_factor: float,
                    shell_ratio: float) -> tuple:
     """The kernel's scalar arguments after d: (prob, sf, dx2, dxn, log_sf),
@@ -274,11 +279,15 @@ def log_target_and_grad_plain(inp: torch.Tensor, d: int, metric: int,
     return torch.cat([out.detach().reshape(1), g])
 
 
-def _launch(inp: torch.Tensor, d: int, scalars: tuple) -> torch.Tensor:
+def _launch(inp: torch.Tensor, d: int, scalars: tuple,
+            out: torch.Tensor | None = None) -> torch.Tensor:
+    """One launch on inp's device and current stream into `out` (d + 1
+    doubles there, made when None); returns `out`."""
     global LAUNCHES
     lib = build_kernel()
     tab = _device_tables(d, inp.device)
-    out = torch.empty(d + 1, dtype=_F64, device=inp.device)
+    if out is None:
+        out = torch.empty(d + 1, dtype=_F64, device=inp.device)
     err = lib.pruner_grad_launch(
         tab.data_ptr(), inp.data_ptr(), out.data_ptr(), d, *scalars,
         torch.cuda.current_stream(inp.device).cuda_stream)
@@ -316,6 +325,42 @@ def log_target(b, ipv, radius: float, target: float, preproc_cost: float,
                                  (metric, symmetry_factor, shell_ratio))
 
 
+class _Staging:
+    """gradient()'s buffers on one device: a pinned host buffer and its
+    device twin, each the packed input at _MAX_D and then _MAX_D + 1
+    outputs, made at a device's first gradient and reused by every
+    call."""
+
+    def __init__(self, device: torch.device):
+        self.host = torch.empty(_IN_MAX + _MAX_D + 1, dtype=_F64,
+                                pin_memory=True)
+        self.card = torch.empty(_IN_MAX + _MAX_D + 1, dtype=_F64,
+                                device=device)
+        self.host_np = self.host.numpy()
+
+
+@lru_cache(maxsize=None)
+def _staging(device: torch.device) -> _Staging:
+    return _Staging(device)
+
+
+def _gradient_on_card(packed: np.ndarray, d: int, consts: tuple,
+                      dev: torch.device) -> np.ndarray:
+    """[log-target, gradient] of one launch through the device's staging
+    buffers: the packed input copied to the card, the outputs written
+    there and copied back, one stream synchronize. The previous call's
+    synchronize makes the buffers free again."""
+    st = _staging(dev)
+    n_in, n_out = packed.shape[0], d + 1
+    st.host_np[:n_in] = packed
+    inp, out = st.card[:n_in], st.card[_IN_MAX:_IN_MAX + n_out]
+    inp.copy_(st.host[:n_in], non_blocking=True)
+    _launch(inp, d, kernel_scalars(d, *consts), out)
+    st.host[_IN_MAX:_IN_MAX + n_out].copy_(out, non_blocking=True)
+    torch.cuda.current_stream(dev).synchronize()
+    return st.host_np[_IN_MAX:_IN_MAX + n_out].copy()
+
+
 def gradient(pruner, b, device=None) -> np.ndarray | None:
     """Analytic log-target gradient in the numerical scheme's convention,
     computed on `device` (torchsetup.resolve_device): one launch of the
@@ -331,10 +376,14 @@ def gradient(pruner, b, device=None) -> np.ndarray | None:
     bn = np.asarray(b, dtype=np.float64)
     consts = (int(pruner.metric), float(pruner.symmetry_factor),
               float(pruner.shell_ratio))
-    inp = torch.from_numpy(pack(
-        bn, pruner.ipv[:2 * d], float(pruner.normalized_radius),
-        float(pruner.target), float(pruner.preproc_cost), consts[0])).to(dev)
-    res = log_target_and_grad(inp, d, *consts).cpu().numpy()
+    packed = pack(bn, pruner.ipv[:2 * d], float(pruner.normalized_radius),
+                  float(pruner.target), float(pruner.preproc_cost),
+                  consts[0])
+    if dev.type == "cuda":
+        res = _gradient_on_card(packed, d, consts, dev)
+    else:
+        res = log_target_and_grad(torch.from_numpy(packed), d,
+                                  *consts).numpy()
     g = res[1:]
     if not np.all(np.isfinite(g)):
         return None

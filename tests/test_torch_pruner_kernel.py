@@ -8,9 +8,11 @@ block, warp-synchronous shuffles, -ffp-contract=off so that only the
 source's own fma() fuses, as under nvcc -fmad=false) and held against the
 plain version (torch.autograd on CPU tensors, pruner/torchgrad.py) and
 against the JAX package's jaxgrad, on the profiles of
-tests/test_torch_pruner.py. Also here: the wrapper's refusal to fall back
-when the kernel cannot build or launch, and the autograd.Function around
-the kernel.
+tests/test_torch_pruner.py. A second build with -DPRUNER_GRAD_FULL_HORNER
+runs every Horner over all d + 2 coefficients: the kernel's short Horner
+must give its bits. Also here: the wrapper's refusal to fall back when the
+kernel cannot build or launch, its staging buffers, and the
+autograd.Function around the kernel.
 """
 
 import ctypes
@@ -49,11 +51,9 @@ DS = (2, 5, 10, 20, 30)
 plain = torchgrad.log_target_and_grad
 
 
-@pytest.fixture(scope="module")
-def emulation(tmp_path_factory):
-    """The kernel's device code built for the host, once per module."""
+def build_emulation(tmp_path_factory, *defines) -> ctypes.CDLL:
     so = str(tmp_path_factory.mktemp("pruner_grad_host") / "libemu.so")
-    res = subprocess.run(EMU_FLAGS + ["-o", so, EMU_SRC],
+    res = subprocess.run(EMU_FLAGS + [*defines, "-o", so, EMU_SRC],
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-4000:]
     lib = ctypes.CDLL(so)
@@ -61,6 +61,19 @@ def emulation(tmp_path_factory):
     lib.pruner_grad_emulate.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int] * 2 + [ctypes.c_double] * 4
     return lib
+
+
+@pytest.fixture(scope="module")
+def emulation(tmp_path_factory):
+    """The kernel's device code built for the host, once per module."""
+    return build_emulation(tmp_path_factory)
+
+
+@pytest.fixture(scope="module")
+def full_horner(tmp_path_factory):
+    """The same with every Horner (and its adjoint) over all d + 2
+    coefficients, as the plain version runs it."""
+    return build_emulation(tmp_path_factory, "-DPRUNER_GRAD_FULL_HORNER")
 
 
 def emulate(lib, inp: np.ndarray, d: int, consts) -> np.ndarray:
@@ -164,6 +177,82 @@ def test_emulated_kernel_at_the_clips(emulation, kernel_gradient, clip,
     assert np.linalg.norm(gk - gj) <= TOL[metric][10] * np.linalg.norm(gj)
 
 
+def guarded(case, b):
+    """Profiles whose steps the kernel runs at the Horner's full length:
+    a zero, a NaN and an infinite coefficient (a non-finite abscissa),
+    and a tiny one whose row's abscissae reach 1e79, so that the adjoint's
+    x^k overflows beyond the short Horner's last coefficient (the full
+    length's trailing ga_k * (+0) terms are NaN there)."""
+    b = b.copy()
+    at, v = {"zero": (len(b) // 2, 0.0), "nan": (len(b) // 2, np.nan),
+             "inf": (len(b) // 2, np.inf),
+             "tiny": (min(2, len(b) - 1), 1e-80)}[case]
+    b[at] = v
+    return b
+
+
+def raw_jaxgrad(jp, b) -> np.ndarray:
+    """jaxgrad's dlog/db before gradient()'s finiteness check."""
+    import jax.numpy as jnp
+
+    d = jp.d
+    fn = jaxgrad._build(d, int(jp.metric), float(jp.symmetry_factor),
+                        float(jp.shell_ratio))
+    return np.asarray(fn(jnp.asarray(b), jnp.asarray(np.asarray(
+        jp.ipv[:2 * d], dtype=np.float64)), float(jp.normalized_radius),
+        float(jp.target), float(jp.preproc_cost)), dtype=np.float64)
+
+
+@pytest.mark.parametrize("case", ["zero", "nan", "inf", "tiny"])
+@pytest.mark.parametrize("metric", [PROB, EXPECTED], ids=["prob", "expsol"])
+@pytest.mark.parametrize("d", [10, 30])
+def test_emulated_kernel_at_the_full_length_guard(emulation, kernel_gradient,
+                                                  d, metric, case):
+    """Where the short Horner would differ from the full one, the kernel
+    is non-finite exactly where the plain version and jaxgrad are, entry
+    by entry, and within KERNEL_TOL of the plain version elsewhere."""
+    jp, tp, b = profile(d, metric, 0)
+    b = guarded(case, b)
+    inp = packed(tp, b)
+    k = emulate(emulation, inp, d, consts_of(tp))
+    p = plain(torch.from_numpy(inp), d, *consts_of(tp)).numpy()
+    assert np.array_equal(np.isfinite(k), np.isfinite(p)), (k, p)
+    assert np.array_equal(np.isfinite(k[1:]),
+                          np.isfinite(raw_jaxgrad(jp, b)))
+    fin = np.isfinite(p[1:])
+    assert np.linalg.norm(k[1:][fin] - p[1:][fin]) <= \
+        KERNEL_TOL[metric] * np.linalg.norm(p[1:][fin])
+    if np.isfinite(p[0]):
+        assert k[0] == pytest.approx(p[0], rel=VALUE_RTOL, abs=0)
+    assert (kernel_gradient(tp, b) is None) == \
+        (jaxgrad.gradient(jp, b) is None)
+
+
+def assert_same_bits(a: np.ndarray, b: np.ndarray) -> None:
+    """a and b the same doubles bit for bit, NaN where either is NaN."""
+    nan = np.isnan(a)
+    assert np.array_equal(nan, np.isnan(b)), (a, b)
+    assert a[~nan].tobytes() == b[~nan].tobytes(), (a, b)
+
+
+@pytest.mark.parametrize("flags", [0, PRUNER_CVP], ids=["svp", "cvp"])
+@pytest.mark.parametrize("metric", [PROB, EXPECTED], ids=["prob", "expsol"])
+@pytest.mark.parametrize("d", DS)
+def test_short_horner_is_the_full_one(emulation, full_horner, d, metric,
+                                      flags):
+    """The kernel's short Horner (step j from coefficient j + 1) gives the
+    bits of the full-length one on the tier-1 profiles, on the clips'
+    and on the guard's profiles."""
+    _, tp, b = profile(d, metric, flags)
+    profiles = [b] + [guarded(c, b) for c in ("zero", "nan", "inf", "tiny")]
+    if d == 10:
+        profiles += [CLIPS[c](b, tp) for c in sorted(CLIPS)]
+    for prof in profiles:
+        inp = packed(tp, prof)
+        assert_same_bits(emulate(emulation, inp, d, consts_of(tp)),
+                         emulate(full_horner, inp, d, consts_of(tp)))
+
+
 @pytest.mark.parametrize("case", ["short", "long", "d31", "zeros", "nan",
                                   "negative"])
 def test_emulated_kernel_is_none_where_jaxgrad_is(kernel_gradient, case):
@@ -229,14 +318,12 @@ def test_no_fallback_when_the_kernel_cannot_run(monkeypatch, tmp_path,
     else:
         monkeypatch.setattr(torchgrad, "build_kernel", lambda: None)
 
-        def launch(inp, d, scalars):
+        def launch(inp, d, scalars, out=None):
             raise RuntimeError("pruner_grad_kernel launch failed: "
                                "an illegal memory access")
 
         monkeypatch.setattr(torchgrad, "_launch", launch)
-        from_numpy = torch.from_numpy
-        monkeypatch.setattr(torch, "from_numpy",
-                            lambda a: from_numpy(a).as_subclass(OnCard))
+        monkeypatch.setattr(torchgrad, "_staging", cpu_staging())
         match = "illegal memory access"
     tp.device = "cuda"
     with pytest.raises(RuntimeError, match=match):
@@ -245,14 +332,54 @@ def test_no_fallback_when_the_kernel_cannot_run(monkeypatch, tmp_path,
         tp._gradient(b)
 
 
-class OnCard(torch.Tensor):
-    """A CPU tensor that reports the card as its device, and stays where it
-    is when sent there: it takes the kernel's route on a machine without a
-    card."""
+def cpu_staging():
+    """torchgrad._staging's stand-in on a machine without a card: one
+    _Staging of CPU tensors (unpinned) for every device asked for."""
+    st = object.__new__(torchgrad._Staging)
+    n = torchgrad._IN_MAX + torchgrad._MAX_D + 1
+    st.host = torch.full((n,), -1.0, dtype=torch.float64)
+    st.card = torch.full((n,), -1.0, dtype=torch.float64)
+    st.host_np = st.host.numpy()
+    return lambda device: st
 
-    @property
-    def device(self):
-        return torch.device("cuda")
 
-    def to(self, *args, **kwargs):
-        return self
+def test_gradient_stages_through_reused_buffers(emulation, kernel_gradient,
+                                                monkeypatch):
+    """gradient()'s route on the card, with CPU tensors standing in for its
+    staging buffers and the emulated kernel for the launch: the packed
+    input copied into the device buffer, one launch from there into the
+    device buffer's output slots and one synchronize a call, the same
+    buffers on every call and every d, and the bits of the emulated
+    kernel's gradient through the CPU route."""
+    calls = []
+
+    def launch(inp, d, scalars, out=None):
+        calls.append((inp.data_ptr(), out.data_ptr(), scalars))
+        out[:] = torch.from_numpy(emulate(emulation, inp.numpy(), d,
+                                          consts_of(tp)))
+        return out
+
+    class Stream:
+        def synchronize(self):
+            calls.append("synchronize")
+
+    want = {}
+    for d in (10, 5, 10):
+        _, tp, b = profile(d, PROB, 0)
+        want[d] = kernel_gradient(tp, b)
+    monkeypatch.setattr(torchgrad, "resolve_device",
+                        lambda device=None: torch.device("cuda"))
+    monkeypatch.setattr(torchgrad, "build_kernel", lambda: None)
+    monkeypatch.setattr(torchgrad, "_launch", launch)
+    monkeypatch.setattr(torchgrad, "_staging", cpu_staging())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream())
+    scalars = []
+    for d in (10, 5, 10):
+        _, tp, b = profile(d, PROB, 0)
+        g = torchgrad.gradient(tp, b, device="cuda")
+        assert g.tobytes() == want[d].tobytes()
+        scalars.append(torchgrad.kernel_scalars(d, *consts_of(tp)))
+    card = torchgrad._staging(torch.device("cuda")).card.data_ptr()
+    assert calls == [x for sc in scalars for x in (
+        (card, card + 8 * torchgrad._IN_MAX, sc), "synchronize")]
