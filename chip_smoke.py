@@ -47,10 +47,32 @@ Phases (each one fails the run if it fails):
      shards steal, phase 5's proved SVP in f64 through the public
      function, and phase 2's grouped trials one per shard (f64); each
      wall beside the same work on one card. Phases 3, 5 and 7 print their
-     walls beside those recorded for PR 5.
+     walls beside the ones recorded before the donation;
+  8. the variant reductions through the port's entry points at the
+     default crossovers (the facade's 2M, the C tour's 60M), each with
+     the card and host-only, six legs in processes of their own: the
+     host-only ones start after phase 1 and run beside phases 2-7
+     without the card, SD-BKZ's card leg after phase 2 beside phases
+     3-7, the other card legs after phase 7, with phase 2's grouped
+     plain check beside them: one self-dual BKZ
+     tour at block 60 on phase 3's warm-up basis (bkz_reduction), one loop of
+     slide reduction at block 60 on an LLL-reduced dim-120 q-ary basis
+     (`fplll -a sld`), and HKZ on phase 5's proved-SVP basis (`fplll -a
+     hkz`); the first two launch `single` and `f32-dual` and keep 95% of
+     the host-only run's root-Hermite gain, HKZ launches `single` and
+     gives phase 5's proved norm and the host-only run's profile; per run
+     the launches per form, the windows sent to the card against those
+     the native first pass finished, the device node share and every
+     card answer's f32 distance against its f64 norm.
 
     python3 chip_smoke.py --mesh       # phases 1 and 7 alone (several
                                        # cards)
+    python3 chip_smoke.py --variants   # phases 1 and 8 alone, on the
+                                       # inputs phases 3 and 5 would make
+                                       # (all six legs run together)
+    python3 chip_smoke.py --variant-leg RUN LEG DEVICE
+        # one of phase 8's legs in this process (RUN sd-bkz, slide or
+        # hkz; LEG card or host), its record as a VARIANT_LEG line
     python3 chip_smoke.py --pruner-ab DIR [DIR ...]
         # the pruner's gradient kernel of other checkouts (e.g. a `git
         # archive` of the parent) and of this one, in turns (DIR, this,
@@ -270,11 +292,13 @@ def assert_best(name, kb: float, pb: float) -> float:
 # (name, dim, seed, linear pruning, radius factor, single root, lanes,
 # modes: True = count, False = search). The dim-56 window keeps the main
 # path's launch shape (m=64, nfix=16, B=1024, R=32768); its radius is cut
-# to 0.85 of the shortest basis vector so that the plain version, which
+# to 0.7 of the shortest basis vector so that the plain version, which
 # runs one lockstep step per node of the longest lane walk, finishes in
-# about a minute on the card. At that radius a search finds nothing, so
-# it runs in count mode only; search mode is held by the d40 cases and
-# by the shrinking-bound check. The 16384-lane case is the form the TPU
+# seconds on the card (at 0.85 it took 85-88 s, time phase 8 needs). The
+# kernel alone is also timed at D56_KERNEL_RADIUS, the radius of its
+# recorded times. At these radii a search finds nothing, so the case
+# runs in count mode only; search mode is held by the d40 cases and by
+# the shrinking-bound check. The 16384-lane case is the form the TPU
 # split into lane tiles: the same roots as "queue d40" with the plain
 # version over 16 times the lanes (the kernel's walkers are set by the
 # card, so its launch is the queue form's).
@@ -282,9 +306,10 @@ BOTH = (True, False)
 CHECK_CASES = [("queue d40 pruned", 40, 3, True, 1.0, False, 1024, BOTH),
                ("queue d40", 40, 3, False, 1.0, False, 1024, BOTH),
                ("lanes d40", 40, 3, False, 1.0, False, 16384, BOTH),
-               ("queue d56", 56, 4, False, 0.85, False, 1024, (True,)),
+               ("queue d56", 56, 4, False, 0.7, False, 1024, (True,)),
                ("nfix0 d24", 24, 1, False, 1.0, True, 1024, BOTH)]
 TIMED_CASE = "queue d56"
+D56_KERNEL_RADIUS = 0.85
 # the shrinking-bound search: the "queue d40" lattice at 1.3 times the
 # squared norm of its shortest basis vector, a ball that holds 30 vectors
 SHRINK_CASE = ("shrink d40 r1.3", 40, 3, 1.3)
@@ -364,8 +389,10 @@ def native_ms(mut, rdiag, prune, A, count_mode, dual=False):
 def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                         grouped=(80, 60, GROUPED_RADIUS)):
     """Phase 2. Returns the per-form records, the largest best-distance
-    difference and the timing record of the main-path shape. The size
-    parameters let it be rehearsed small; the script runs the defaults."""
+    difference, the timing record of the main-path shape and the grouped
+    form's check against its plain version, still to run (grouped_check).
+    The size parameters let it be rehearsed small; the script runs the
+    defaults."""
     import torch
     from fplll_tpu_torch.enum import kernels
 
@@ -406,16 +433,19 @@ def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                 timing = rec
                 rec["us_per_step"] = k_ms * 1e3 / rec["longest_walker_walk"]
                 rec["grid_1_block"] = grid_check(name, pack, kw, k_out, mr)
+                wide = packed_problem(*uniform_window(
+                    d, seed, pruned, D56_KERNEL_RADIUS)[1:5], device)
+                rec[f"kernel_ms_at_{D56_KERNEL_RADIUS}"] = wrapper_ms(
+                    lambda: kernels.enum_run(**wide, **kw))[1]
             forms.append(rec)
             log("kernel-check " + json.dumps(rec))
 
     rec, err = shrink_check(device, *shrink)
     forms.append(rec)
     errs.append(err)
-    rec, err = grouped_check(device, *grouped)
+    rec, grouped_plain = grouped_check(device, *grouped)
     forms.append(rec)
-    errs.append(err)
-    return forms, max(errs), timing
+    return forms, max(errs), timing, grouped_plain
 
 
 def grid_check(name, pack, kw, k_out, m_real) -> dict:
@@ -620,11 +650,14 @@ def exact_norm(basis, coeffs) -> int:
 
 
 def grouped_check(device, dim, block, radius):
-    """The grouped form at the main path's shape against the plain
-    version: equal union best (which the C core found too), padding
-    problem empty, the shared bound ending at the union best, and the
-    kernel's vector verified in exact integers: its norm is the C core's
-    union best."""
+    """The grouped form at the main path's shape: padding problem empty,
+    the shared bound ending at the union best, and the kernel's vector
+    verified in exact integers: its norm is the C core's union best.
+    Returns its record and the check against the plain version (equal
+    union best, padding problem empty), a call that fills the record's
+    plain fields and returns the best-distance difference: the plain
+    version walks the three trials one after another for about two
+    minutes, so the smoke runs it beside phase 8's card legs."""
     import torch
     from fplll_tpu_torch.enum import kernels
 
@@ -637,15 +670,10 @@ def grouped_check(device, dim, block, radius):
     kw = dict(G_real=G_real, batch=1024, is_svp=True, max_steps=1 << 30)
     k_out, k_ms = wrapper_ms(lambda: kernels.enum_run_grouped(**t, **kw))
     name = f"grouped G={G_real} (G={G}) d{block}"
-    plain_args = {k: v for k, v in t.items() if k != "m_real"}
-    p_out, p_s = timed(lambda: kernels.enum_run_grouped_plain(
-        **plain_args, **kw), torch.cuda.synchronize)
-    kdist, pdist = k_out["dist"].cpu(), p_out["dist"].cpu()
-    kd, pd = float(kdist[:G_real].min()), float(pdist[:G_real].min())
+    kdist = k_out["dist"].cpu()
+    kd = float(kdist[:G_real].min())
     assert math.isfinite(kd), "grouped: the kernel found no vector"
-    err = assert_best("grouped union best", kd, pd)
-    assert math.isinf(float(kdist[G_real:].min())) and \
-        math.isinf(float(pdist[G_real:].min())), "a padding problem found"
+    assert math.isinf(float(kdist[G_real:].min())), "a padding problem found"
     assert float(k_out["bound"]) == kd, \
         f"shared bound {float(k_out['bound'])} against union best {kd}"
     g = int(kdist[:G_real].argmin())
@@ -663,21 +691,37 @@ def grouped_check(device, dim, block, radius):
     rec = {"form": name, "mode": "search",
            "m": m, "m_reals": gp["m_reals"],
            "R": t["roots_pd"].shape[1], "B": 1024,
-           "kernel_ms": k_ms, "plain_ms": p_s * 1e3, "nodes": nodes,
+           "kernel_ms": k_ms, "nodes": nodes,
            "nodes_per_s": nodes / (k_ms * 1e-3),
            "native_ms": gp["native_ms"], "native_nodes": gp["native_nodes"],
            "radius": gp["radius"], "union_best": kd,
-           "plain_union_best": pd, "c_core_union_best": gp["union_best_c"],
+           "c_core_union_best": gp["union_best_c"],
            "c_core_trial_best": gp["trial_best_c"],
            "certified_trials": gp["certified"], "exact_norm": exact,
            "shared_bound": float(k_out["bound"]),
            f"kernel_ms_at_{GROUPED_TIMED_RADIUS}": wide_ms,
-           **geometry_fields(k_out),
-           "plain_steps": int(p_out["steps"])}
+           **geometry_fields(k_out)}
     rec["bound_ms"], rec["bound_by"], rec["R_real"] = bound_ms(
         t, k_out["nodes"], G, block, gp["m_reals"])
     log("kernel-check " + json.dumps(rec))
-    return rec, err
+
+    def plain_check() -> float:
+        plain_args = {k: v for k, v in t.items() if k != "m_real"}
+        p_out, p_s = timed(lambda: kernels.enum_run_grouped_plain(
+            **plain_args, **kw), torch.cuda.synchronize)
+        pdist = p_out["dist"].cpu()
+        pd = float(pdist[:G_real].min())
+        err = assert_best("grouped union best", kd, pd)
+        assert math.isinf(float(pdist[G_real:].min())), \
+            "a padding problem found by the plain version"
+        rec.update(plain_ms=p_s * 1e3, plain_union_best=pd,
+                   plain_steps=int(p_out["steps"]))
+        log(f"kernel-check {name} against the plain version, beside phase "
+            "8's card legs " + json.dumps({k: rec[k] for k in (
+                "union_best", "plain_union_best", "plain_ms",
+                "plain_steps")}))
+        return err
+    return rec, plain_check
 
 
 # the forms of the proved SVP/CVP solvers: (form, element type, dual,
@@ -861,59 +905,130 @@ def bkz_tour(b, strategies, block, device, hybrid):
 
 
 class WindowAnswers:
-    """Keeps every window answer the card hands back to the C tour
-    (enum/device.py:device_enumerate_windows): the window's mu and r in
-    f64, the reported distance and the coefficients, for the f32 drift
-    (ROADMAP.md queue 3, item 1), measured after the tour so that the
-    timed tour pays only for the copies."""
+    """Keeps every answer a card search hands back, through either route:
+    the C tour's windows (enum/device.py:device_enumerate_windows, grouped
+    trials included) and every other DeviceEnumerator search (the
+    facade's): the window's f64 mu and r (dual-transformed where the
+    search was dual), the reported distance, the coefficients, whether
+    the search was dual and its pruning, for the f32 drift (ROADMAP.md
+    queue 3) and the f64 certificate, both computed after the run so that
+    a timed run pays only for the copies. Also counts the card searches
+    (DeviceEnumerator.enumerate, any route), their seconds and nodes, and
+    the windows the C tour handed to the card."""
 
     def __enter__(self):
+        import inspect
+
         import numpy as np
         from fplll_tpu_torch.enum import device as device_mod
 
         self.kept = []
-        self._orig = orig = device_mod.device_enumerate_windows
-        kept = self.kept
+        self.searches = self.search_nodes = self.c_tour_windows = 0
+        self.search_s = 0.0
+        windows = device_mod.device_enumerate_windows
+        search = device_mod.DeviceEnumerator.enumerate
+        self._saved = [(device_mod, "device_enumerate_windows", windows),
+                       (device_mod.DeviceEnumerator, "enumerate", search)]
+        search_args = inspect.signature(search).bind
+        spy, inside = self, []
 
-        def windows(muts, rdiags, prunes, maxdists, device=None):
-            dists, sols, nodes = orig(muts, rdiags, prunes, maxdists,
-                                      device=device)
+        def c_tour_windows(muts, rdiags, prunes, maxdists, device=None):
+            inside.append(True)
+            try:
+                dists, sols, nodes = windows(muts, rdiags, prunes, maxdists,
+                                             device=device)
+            finally:
+                inside.pop()
+            spy.c_tour_windows += len(muts)
             for g in np.flatnonzero(np.isfinite(dists)):
-                kept.append((np.array(muts[g], dtype=np.float64),
-                             np.array(rdiags[g], dtype=np.float64),
-                             float(dists[g]),
-                             np.array(sols[g], dtype=np.float64)))
+                spy.kept.append((np.array(muts[g], dtype=np.float64),
+                                 np.array(rdiags[g], dtype=np.float64),
+                                 float(dists[g]),
+                                 np.array(sols[g], dtype=np.float64), False,
+                                 np.array(prunes[g], dtype=np.float64)))
             return dists, sols, nodes
 
-        device_mod.device_enumerate_windows = windows
+        def card_search(*a, **kw):
+            bound = search_args(*a, **kw)
+            bound.apply_defaults()
+            p, found = bound.arguments, []
+            ev = p["evaluator"]
+            eval_sol = ev.eval_sol
+
+            def answer(x, dist, *rest):
+                found.append((float(dist), [float(v) for v in x]))
+                return eval_sol(x, dist, *rest)
+
+            ev.eval_sol = answer
+            t0 = time.perf_counter()
+            try:
+                out = search(*a, **kw)
+            finally:
+                spy.search_s += time.perf_counter() - t0
+                del ev.eval_sol
+            spy.searches += 1
+            spy.search_nodes += int(np.sum(out[1]))
+            if found and not inside and p["is_svp"] and not p["count_mode"]:
+                dist, x = min(found)
+                prune = p["prune"]
+                if prune is None or len(prune) == 0:
+                    prune = np.ones(len(p["rdiag"]))
+                spy.kept.append((np.array(p["mut"], dtype=np.float64),
+                                 np.array(p["rdiag"], dtype=np.float64),
+                                 dist, np.array(x), bool(p["dual"]),
+                                 np.array(prune, dtype=np.float64)))
+            return out
+
+        device_mod.device_enumerate_windows = c_tour_windows
+        device_mod.DeviceEnumerator.enumerate = card_search
         return self
 
     def __exit__(self, *exc):
-        from fplll_tpu_torch.enum import device as device_mod
-        device_mod.device_enumerate_windows = self._orig
+        for owner, name, f in reversed(self._saved):
+            setattr(owner, name, f)
         return False
 
     def drift(self) -> dict:
         """Each answer's reported distance over its vector's norm from the
-        window's f64 GSO (partial_dist), less one: how many exceed the
-        1e-5 bound slack, and the extremes."""
-        excess = [dist / partial_dist(x, mut, r, 0) - 1.0
-                  for mut, r, dist, x in self.kept]
+        window's f64 GSO (partial_dist; the dual recurrence where the
+        answer says so), less one: how many exceed the 1e-5 bound slack,
+        and the extremes."""
+        excess = [dist / partial_dist(x, mut, r, 0, dual) - 1.0
+                  for mut, r, dist, x, dual, _ in self.kept]
         return {"answers": len(excess),
                 "above_slack_1e-5": sum(e > 1e-5 for e in excess),
                 "largest_excess": max(excess, default=None),
                 "least_excess": min(excess, default=None)}
 
+    def certify(self) -> dict:
+        """Each answer against the f64 native C core on its window: the
+        same (pruned; dual where the answer is) tree searched inside the
+        answer's f64 norm less 1e-9 of it. A search's bound never falls
+        below its answer, so that tree holds no shorter vector unless the
+        f32 walk pruned one (ROADMAP.md queue 3): how many answers were
+        certified, and how many windows held a shorter vector, with its
+        norm's shortfall."""
+        from fplll_tpu_torch.native import native_enumerate
 
-def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
-                    crossover=CROSSOVER):
-    """Phase 3: BKZ-2.0 on a q-ary basis, the warm-up on the host C core,
-    then one tour with the device crossover and the same tour on the host
-    C core alone. Sizes are parameters only so the phase can be rehearsed
-    small; the script runs it at the defaults."""
+        certified, shorter = 0, []
+        for mut, r, _, x, dual, prune in self.kept:
+            norm = partial_dist(x, mut, r, 0, dual)
+            out = native_enumerate(mut, r, prune, None, norm * (1 - 1e-9),
+                                   True, dual, False)
+            if math.isfinite(out[1]):
+                shorter.append(1.0 - out[1] / norm)
+            else:
+                certified += 1
+        return {"answers": len(self.kept), "certified": certified,
+                "shorter_vector_found": len(shorter),
+                "largest_shortfall": max(shorter, default=None)}
+
+
+def qary_warm_basis(device, dim=80, warm_blocks=(40, 50)):
+    """gen_qary_bits(dim, dim / 2, 30), seed 11, LLL-reduced, then one
+    BKZ-2.0 tour at each of `warm_blocks` on the host C core."""
     from fplll_tpu_torch.algs.bkz_param import load_strategies_json
     from fplll_tpu_torch.algs.wrapper import lll_reduction
-    from fplll_tpu_torch.enum import kernels
     from fplll_tpu_torch.nr.rng import RandGen
     from fplll_tpu_torch.ops.gen import gen_qary_bits
 
@@ -926,6 +1041,21 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
         bkz_tour(b, strategies, warm, device, 0)
     log(f"main-path warm-up {warm_blocks} (host C core): "
         f"{time.perf_counter() - t0:.3f} s")
+    return b
+
+
+def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
+                    crossover=CROSSOVER):
+    """Phase 3: BKZ-2.0 on a q-ary basis, the warm-up on the host C core,
+    then one tour with the device crossover and the same tour on the host
+    C core alone. Sizes are parameters only so the phase can be rehearsed
+    small; the script runs it at the defaults."""
+    from fplll_tpu_torch.algs.bkz_param import load_strategies_json
+    from fplll_tpu_torch.enum import kernels
+    from fplll_tpu_torch.nr.rng import RandGen
+
+    b = qary_warm_basis(device, dim, warm_blocks)
+    strategies = load_strategies_json("default.json")
     b_dev, b_host = b.copy(), b.copy()
 
     kernels.reset_launch_counts()
@@ -1039,7 +1169,7 @@ def phase_window(device, dim=80, block=60, warm=40):
     assert math.isfinite(ref[1]), "the C core found no vector"
     assert math.isfinite(dev_best), "the card found no vector"
     dev_exact = math.ldexp(exact_norm(b, dev_x), -normexp)
-    # the f32 drift (ROADMAP.md queue 3, item 1): each answer's reported
+    # the f32 drift (ROADMAP.md queue 3, "Not faults"): each answer's reported
     # distance over its vector's exact norm, against the 1e-5 bound slack
     excess = [r[2] / math.ldexp(exact_norm(b, r[3]), -normexp) - 1.0
               for r in runs]
@@ -2459,6 +2589,8 @@ def sweep_stats(trace) -> dict:
     for sweep in trace:
         for r in sweep:
             steals += r["stole"]
+            if "form" not in r:
+                continue        # a shard that launched nothing but stole
             sh = per.setdefault(r["shard"], {"launches": {}, "l2c": [],
                                              "kernel_ms": 0.0})
             sh["launches"][r["form"]] = sh["launches"].get(r["form"], 0) + 1
@@ -2677,7 +2809,419 @@ def phase_mesh(device, devices=None, batch=MESH_BATCH, count=MESH_COUNT,
 
 
 # ---------------------------------------------------------------------------
-# phase 1: the build's instances
+# phase 8: the variant reductions (self-dual BKZ, slide reduction, HKZ)
+# ---------------------------------------------------------------------------
+# the variant tours' block; slide reduction runs on gen_qary_bits(120, 60,
+# 30), seed 11, LLL-reduced: a dimension the block divides, two primal
+# windows and one dual window per loop
+VARIANT_BLOCK, SLIDE_DIM = 60, 120
+# the HKZ profile (r_ii of the exact Gram) against the host-only run's,
+# relative: a generic lattice has one shortest vector up to sign, so an
+# HKZ-reduced basis has one profile
+HKZ_RTOL = 1e-9
+
+
+class VariantSpy(WindowAnswers):
+    """What one variant reduction did, through whichever route it took:
+    WindowAnswers' card searches and answers; the windows the facade took
+    (enum/device.py:device_external_enumerator not declining), primal and
+    dual, and of those the ones it sent to the card (a card search ran)
+    against the ones its native first pass finished; the launches per
+    form; the nodes of the reduction (BKZReduction.bkz); and the seconds
+    in the facade's enumerations."""
+
+    def __enter__(self):
+        import inspect
+
+        from fplll_tpu_torch.algs.bkz import BKZReduction
+        from fplll_tpu_torch.enum import api, device, kernels
+
+        super().__enter__()
+        kernels.reset_launch_counts()
+        self.facade_windows = {"primal": 0, "dual": 0}
+        self.card_windows = {"primal": 0, "dual": 0}
+        self.facade_enum_s, self.nodes = 0.0, 0
+        self._registered = api.registered_enumerator()
+        facade = api.Enumeration.enumerate
+        ext = device.device_external_enumerator
+        bkz = BKZReduction.bkz
+        self._saved += [(api.Enumeration, "enumerate", facade),
+                        (device, "device_external_enumerator", ext),
+                        (BKZReduction, "bkz", bkz)]
+        ext_args = inspect.signature(ext).bind
+        spy = self
+
+        def facade_enumerate(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return facade(*a, **kw)
+            finally:
+                spy.facade_enum_s += time.perf_counter() - t0
+
+        def external(*a, **kw):
+            kind = "dual" if ext_args(*a, **kw).arguments["dual"] \
+                else "primal"
+            searches = spy.searches
+            out = ext(*a, **kw)
+            if out is not None:
+                spy.facade_windows[kind] += 1
+                spy.card_windows[kind] += spy.searches > searches
+            return out
+
+        def reduction(self_):
+            try:
+                return bkz(self_)
+            finally:
+                spy.nodes += int(self_.nodes)
+
+        api.Enumeration.enumerate = facade_enumerate
+        device.device_external_enumerator = external
+        BKZReduction.bkz = reduction
+        if self._registered is ext:
+            api.set_external_enumerator(external)
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.enum import api, kernels
+
+        super().__exit__(*exc)
+        if api.get_external_enumerator() is not self._registered:
+            api.set_external_enumerator(self._registered)
+        self.launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        return False
+
+    def record(self, wall_s: float) -> dict:
+        return {"wall_s": wall_s, "launches": self.launches,
+                "route": "C tour" if self.c_tour_windows else
+                "Python engine" if sum(self.facade_windows.values()) else
+                "host",
+                "facade_windows_to_card": self.card_windows,
+                "facade_windows_native_first_pass": {
+                    k: self.facade_windows[k] - self.card_windows[k]
+                    for k in self.card_windows},
+                "c_tour_windows_to_card": self.c_tour_windows,
+                # nodes of the card searches (the kernel and its root
+                # expansion) over those of the whole reduction
+                "nodes": self.nodes, "card_search_nodes": self.search_nodes,
+                "device_node_share": self.search_nodes / max(self.nodes, 1),
+                # the Python engine's seconds in the facade's enumerations
+                # (native first passes, card searches, host oracle) and
+                # the rest of the wall: preprocessing, LLL, insertion
+                "facade_enum_s": self.facade_enum_s,
+                "card_search_s": self.search_s,
+                "outside_enum_s": wall_s - self.facade_enum_s,
+                "f32_drift": self.drift()}
+
+
+class HostOnly:
+    """Every window on the host: the facade's backend declines every job
+    (a user's set_external_enumerator; the host oracle, the native C core,
+    takes it) and the C tour's crossover is 0, which hands it no window."""
+
+    def __enter__(self):
+        from fplll_tpu_torch.enum import api
+
+        self._registered = api.registered_enumerator()
+        self._env = os.environ.get("FPLLL_TPU_HYBRID_NODES")
+        api.set_external_enumerator(lambda *a, **kw: None)
+        os.environ["FPLLL_TPU_HYBRID_NODES"] = "0"
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.enum import api
+
+        api.set_external_enumerator(self._registered)
+        if self._env is None:
+            os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
+        else:
+            os.environ["FPLLL_TPU_HYBRID_NODES"] = self._env
+        return False
+
+
+def run_fplll(argv, b, codes=(0,)):
+    """`fplll <argv>` in this process on basis b, whose exit code must be
+    one of `codes`: the reduced basis."""
+    from fplll_tpu_torch.cli import main as fplll
+    from fplll_tpu_torch.ops.intmat import format_matrix, parse_matrix
+
+    rc, out = run_cli(fplll, argv, format_matrix(b))
+    assert rc in codes, (argv, rc, out[-500:])
+    return parse_matrix(out)
+
+
+# Phase 8's six legs (three reductions, each with the card and
+# host-only) are CPU-bound Python (the variant tours run on the Python
+# engine: SD-BKZ's one tour took 505-710 s with the card or without it
+# on the card's machine), so each runs in a process of its own and the
+# smoke's wall holds the longest leg, not their sum. The host-only legs
+# start after phase 1 and run beside phases 2-7 on the CPU alone: they
+# do not see the card (CUDA_VISIBLE_DEVICES empty, FPLLL_TORCH_DEVICE=
+# cpu). Phase 2, whose kernel times the kernels line reports, has the
+# card to itself. SD-BKZ's card leg cannot follow phase 7 within the
+# smoke's limit (the smoke then ended 58-64 s short of it), so it starts
+# after phase 2 and runs beside phases 3-7: its card searches take about
+# 4 s of its wall, in about 60 launches, and the kernels line marks the
+# gradient kernel's times, from phase 6, as taken beside it. The other
+# card legs start after phase 7. Phase 2's grouped plain check, two or
+# three minutes of a host-bound loop of small launches, runs beside them
+# once HKZ's reduction has ended (HKZ's card searches fill the card for
+# seconds). A leg prints VARIANT_REDUCED when its reduction ends and
+# VARIANT_LEG <json>, its record, when it is done; phase 8 reads the
+# record.
+VARIANT_RUNS = ("sd-bkz", "slide", "hkz")
+# seconds from the smoke's start by which every leg must have ended (the
+# smoke's own limit is 1200 s)
+VARIANT_DEADLINE_S = 1150
+SMOKE_T0 = time.perf_counter()
+
+
+def variant_input(run, device, warm=(80, (40, 50)), slide_dim=SLIDE_DIM,
+                  hkz_dim=SVP_DIM):
+    """The input basis of one of phase 8's reductions: phase 3's warm-up
+    basis (SD-BKZ), the LLL-reduced q-ary basis of `slide_dim` (slide)
+    or phase 5's proved-SVP basis (HKZ); each made as its phase makes
+    it, from its seed. Sizes are parameters only so the phase can be
+    rehearsed small."""
+    from fplll_tpu_torch.algs.wrapper import lll_reduction
+    from fplll_tpu_torch.nr.rng import RandGen
+    from fplll_tpu_torch.ops.gen import gen_qary_bits
+
+    if run == "sd-bkz":
+        return qary_warm_basis(device, *warm)
+    if run == "slide":
+        RandGen.init_with_seed(11)
+        b = gen_qary_bits(slide_dim, slide_dim // 2, 30)
+        lll_reduction(b)
+        return b
+    return intrel_basis(hkz_dim, SVP_SEED)
+
+
+def variant_call(run, device, block=VARIANT_BLOCK):
+    """(case name, call(b) -> reduced copy of b, forms the card's run
+    must launch) of one of phase 8's reductions through the port's
+    public entry points."""
+    from fplll_tpu_torch.algs.bkz import bkz_reduction
+    from fplll_tpu_torch.algs.bkz_param import BKZParam, load_strategies_json
+    from fplll_tpu_torch.defs import (BKZ_GH_BND, BKZ_MAX_LOOPS,
+                                      BKZ_SD_VARIANT, RED_BKZ_LOOPS_LIMIT)
+
+    if run == "sd-bkz":
+        strategies = load_strategies_json("default.json")
+
+        def sd_bkz(b):
+            b = b.copy()
+            bkz_reduction(b, BKZParam(block, strategies, flags=BKZ_GH_BND |
+                                      BKZ_MAX_LOOPS | BKZ_SD_VARIANT,
+                                      max_loops=1), device=device)
+            return b
+        return (f"SD-BKZ block {block}, one tour", sd_bkz,
+                ("single", "f32-dual"))
+    if run == "slide":
+        argv = ["-a", "sld", "-b", str(block), "-s", "default.json",
+                "-bkzmaxloops", "1"]
+        # one loop ends at the loop limit (exit code 8) unless it is clean
+        return (f"slide block {block}, one loop",
+                lambda b: run_fplll(argv, b, (0, RED_BKZ_LOOPS_LIMIT)),
+                ("single", "f32-dual"))
+    return "HKZ", lambda b: run_fplll(["-a", "hkz"], b), ("single",)
+
+
+def variant_leg(run, leg, device, **sizes) -> dict:
+    """One leg of one of phase 8's reductions, in this process: with the
+    card at the default crossovers (no FPLLL_TPU_HYBRID_NODES in the
+    environment: the facade's 2M, the C tour's 60M) or host-only, from
+    RandGen seed 12. Returns its record, with what the checks need of the
+    input and the output: a digest of the input, LLL-reducedness and
+    root-Hermite factors, the first vector's squared norm and the r_ii
+    profile (exact Gram)."""
+    import contextlib
+    import hashlib
+
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.nr.rng import RandGen
+    from fplll_tpu_torch.ops.intmat import format_matrix
+
+    block = sizes.pop("block", VARIANT_BLOCK)
+    start = variant_input(run, device, **sizes)
+    case, call, forms = variant_call(run, device, block)
+    os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
+    RandGen.init_with_seed(12)
+    with HostOnly() if leg == "host" else contextlib.nullcontext(), \
+            VariantSpy() as spy:
+        span = [time.time()]
+        t0 = time.perf_counter()
+        out = call(start)
+        if leg == "card":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        span.append(time.time())
+    print("VARIANT_REDUCED", flush=True)
+    t0 = time.perf_counter()
+    cert = spy.certify()
+    cert["seconds"] = time.perf_counter() - t0
+    _, rhf_start = gso_stats(start)
+    red, rhf = gso_stats(out)
+    _, r, e = gso_of(out)
+    return {"case": f"{case}, dim {start.nrows}", "leg": leg,
+            "forms": forms, **spy.record(wall), "f64_certificate": cert,
+            # the reduction's start and end, seconds since the epoch
+            "span": span,
+            "start_digest": hashlib.sha256(
+                format_matrix(start).encode()).hexdigest(),
+            "lll_reduced": red, "rhf_start": rhf_start, "rhf": rhf,
+            "norm_b1": sum(int(v) ** 2 for v in out.a[0]),
+            "profile": [float(x) for x in np.ldexp(r, e)]}
+
+
+def start_variant_leg(run, leg) -> dict:
+    """One of phase 8's legs in a process of its own running this script
+    with --variant-leg, its output to a temporary file; numpy's and
+    torch's thread pools held to one thread each, as a leg is one Python
+    thread. A host-only leg runs on the CPU and does not see the card."""
+    import tempfile
+
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               OPENBLAS_NUM_THREADS="1")
+    device = "cuda"
+    if leg == "host":
+        env.update(CUDA_VISIBLE_DEVICES="", FPLLL_TORCH_DEVICE="cpu")
+        device = "cpu"
+    fd, path = tempfile.mkstemp(prefix=f"chip_smoke_{run}_{leg}_",
+                                suffix=".txt")
+    with os.fdopen(fd, "w") as out:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--variant-leg",
+             run, leg, device], cwd=ROOT, stdout=out,
+            stderr=subprocess.STDOUT, env=env, start_new_session=True)
+    log(f"phase 8: {run} {leg} leg started ({path})")
+    return {"run": run, "leg": leg, "proc": proc, "path": path}
+
+
+def leg_output(lg) -> str:
+    with open(lg["path"]) as f:
+        return f.read()
+
+
+def start_card_legs(legs: list, runs) -> None:
+    """Phase 8's card legs of `runs`, appended to `legs` as they start."""
+    for run in runs:
+        legs.append(start_variant_leg(run, "card"))
+
+
+def wait_reduced(lg) -> None:
+    """Until leg `lg` has printed VARIANT_REDUCED or ended."""
+    while lg["proc"].poll() is None and \
+            "VARIANT_REDUCED" not in leg_output(lg):
+        assert time.perf_counter() - SMOKE_T0 < VARIANT_DEADLINE_S, \
+            f"phase 8: the {lg['run']} {lg['leg']} leg did not end in time"
+        time.sleep(0.5)
+
+
+def stop_variant_legs(legs) -> None:
+    """Kill every leg still running, with whatever it started."""
+    import signal
+
+    for lg in legs:
+        if lg["proc"].poll() is None:
+            os.killpg(lg["proc"].pid, signal.SIGKILL)
+            lg["proc"].wait()
+
+
+def collect_variant_legs(legs) -> dict:
+    """Wait for the legs, each until VARIANT_DEADLINE_S after the smoke's
+    start; {(run, leg): record}. A leg that fails, or prints no record,
+    fails the phase with its output's tail."""
+    recs = {}
+    for lg in legs:
+        left = VARIANT_DEADLINE_S - (time.perf_counter() - SMOKE_T0)
+        try:
+            rc = lg["proc"].wait(timeout=max(left, 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        text = leg_output(lg)
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("VARIANT_LEG ")), None)
+        assert rc == 0 and line is not None, \
+            f"phase 8 leg {lg['run']} {lg['leg']}: exit {rc}\n{text[-3000:]}"
+        recs[(lg["run"], lg["leg"])] = json.loads(line[len("VARIANT_LEG "):])
+    return recs
+
+
+def phase_variants(legs, svp_norm) -> list:
+    """Phase 8: self-dual BKZ (one tour at block 60 on phase 3's warm-up
+    basis, bkz_reduction), slide reduction (one loop at block 60 on an
+    LLL-reduced dim-120 q-ary basis, `fplll -a sld`) and HKZ (phase 5's
+    proved-SVP basis, `fplll -a hkz`) through the port's public entry
+    points, each with the card and host-only (the legs), from the same
+    input. The card's runs launch their forms; SD-BKZ and slide keep 95%
+    of the host-only run's root-Hermite gain (phase 3's gate); HKZ gives
+    phase 5's proved norm and the host-only run's profile. Each record
+    says how long its card and host-only legs ran at the same time: walls
+    taken together are not compared."""
+    import numpy as np
+
+    recs = collect_variant_legs(legs)
+    out = []
+    for run in VARIANT_RUNS:
+        card, host = recs[(run, "card")], recs[(run, "host")]
+        (c0, c1), (h0, h1) = card["span"], host["span"]
+        rec = {"case": card["case"],
+               "card": {k: v for k, v in card.items() if k != "profile"},
+               "host": {k: v for k, v in host.items() if k != "profile"},
+               "legs_overlap_s": max(0.0, min(c1, h1) - max(c0, h0))}
+        log("variant " + json.dumps(rec))
+        assert card["start_digest"] == host["start_digest"], \
+            f"{run}: the legs started from different bases"
+        assert not host["launches"], f"{run}: the host-only run launched"
+        for form in card["forms"]:
+            assert card["launches"].get(form, 0) > 0, \
+                f"{run}: no {form} launch on the card ({card['launches']})"
+        assert card["lll_reduced"] and host["lll_reduced"], \
+            f"{run}: output not LLL-reduced"
+        if run == "hkz":
+            rc, rh = np.array(card["profile"]), np.array(host["profile"])
+            rel = float(np.max(np.abs(rc - rh) / rh))
+            rec.update(route=card["route"], proved_svp_norm=svp_norm,
+                       profile_max_rel_diff=rel)
+            log("variant-hkz " + json.dumps({
+                "route": rec["route"], "norm_card": card["norm_b1"],
+                "norm_host": host["norm_b1"], "proved_svp_norm": svp_norm,
+                "profile_max_rel_diff": rel}))
+            assert card["norm_b1"] == host["norm_b1"] == svp_norm, \
+                (card["norm_b1"], host["norm_b1"], svp_norm)
+            assert rel <= HKZ_RTOL, rel
+        else:
+            r0, rc, rh = card["rhf_start"], card["rhf"], host["rhf"]
+            rec["quality"] = {"rhf_start": r0, "rhf_card": rc,
+                              "rhf_host": rh,
+                              "gain_share": (r0 - rc) / (r0 - rh)
+                              if r0 != rh else None}
+            log(f"variant-quality {run} " + json.dumps(rec["quality"]))
+            assert rh < r0, (run, rh, r0)
+            assert rc - rh <= 0.05 * (r0 - rh), (run, rec["quality"])
+        out.append(rec)
+    return out
+
+
+def variant_numbers(recs) -> dict:
+    """Phase 8's line: per run the walls and how long the two legs ran
+    together, launches per form, the route, windows on the card against
+    the native first pass, the device node share, the f32 drift and the
+    f64 certificate."""
+    keys = ("wall_s", "launches", "route", "facade_windows_to_card",
+            "facade_windows_native_first_pass", "c_tour_windows_to_card",
+            "device_node_share", "facade_enum_s", "card_search_s",
+            "outside_enum_s", "f32_drift", "f64_certificate", "process_s")
+    return {r["case"]: {"card": {k: r["card"][k] for k in keys},
+                        "host_wall_s": r["host"]["wall_s"],
+                        "host_process_s": r["host"]["process_s"],
+                        **{k: r[k] for k in ("legs_overlap_s", "quality",
+                                             "profile_max_rel_diff")
+                           if k in r}}
+            for r in recs}
+
+
 # ---------------------------------------------------------------------------
 # registers of the six f32 instances of BKZ-2.0, (M, SMEM) -> registers,
 # as the source compiles them (nvcc 12.9, the flags of
@@ -2869,8 +3413,9 @@ def mesh_numbers(rec) -> dict:
                        for c in rec["checks"]}}
 
 
-def this_run_walls(main_rec, svp_recs, mesh_rec) -> dict:
-    """This run's walls under the keys of PR5_RECORDED_WALLS_S."""
+def this_run_walls(main_rec, svp_recs, mesh_rec, var_recs) -> dict:
+    """This run's walls under the keys of PR5_RECORDED_WALLS_S, and phase
+    8's: [with the card, host-only, seconds the two legs ran together]."""
     walls = {"phase 3: block-60 tour with the card":
              main_rec["device_tour_wall_s"]}
     for r in svp_recs:
@@ -2879,6 +3424,10 @@ def this_run_walls(main_rec, svp_recs, mesh_rec) -> dict:
     for c in mesh_rec["checks"]:
         walls[f"phase 7: {c['case']}"] = [c["mesh_wall_s"],
                                           c["single_card_wall_s"]]
+    for r in var_recs:
+        walls[f"phase 8: {r['case']}"] = [r["card"]["wall_s"],
+                                          r["host"]["wall_s"],
+                                          r["legs_overlap_s"]]
     return walls
 
 
@@ -2943,7 +3492,33 @@ def pruner_ab(others: list) -> int:
     return 0
 
 
-def main(mesh_only: bool = False) -> int:
+def proved_svp_norm(device) -> int:
+    """Phase 5's proved SVP norm, from the card alone (phase 5 holds it
+    equal to the host's): phase 8's HKZ check where phase 5 did not
+    run."""
+    from fplll_tpu_torch.algs.svpcvp import shortest_vector
+
+    b = intrel_basis(SVP_DIM, SVP_SEED)
+    status, x = shortest_vector(b.copy(), device=device)
+    assert status == 0, status
+    return sum(v * v for v in lattice_point(b, x))
+
+
+def variant_leg_main(run: str, leg: str, device: str) -> int:
+    """--variant-leg: one leg of phase 8 in this process (started by
+    start_variant_leg), its record as one line."""
+    sys.path.insert(0, ROOT)
+    import torch
+
+    torch.set_num_threads(1)
+    t0 = time.perf_counter()
+    rec = variant_leg(run, leg, device)
+    rec["process_s"] = time.perf_counter() - t0
+    print("VARIANT_LEG " + json.dumps(rec), flush=True)
+    return 0
+
+
+def main(mesh_only: bool = False, variants_only: bool = False) -> int:
     try:
         import torch
     except ImportError:
@@ -2960,7 +3535,6 @@ def main(mesh_only: bool = False) -> int:
               file=sys.stderr)
         return 2
     from fplll_tpu_torch import native
-    from fplll_tpu_torch.enum import kernels
 
     device = "cuda"
     card = card_line()
@@ -2989,9 +3563,34 @@ def main(mesh_only: bool = False) -> int:
         log(card)
         return contract_line()
 
+    # phase 8's host-only legs run beside phases 2-7 (or, with
+    # --variants, beside the card legs), each in a process of its own
+    legs = [start_variant_leg(run, "host") for run in VARIANT_RUNS]
+    try:
+        if variants_only:
+            # phase 8 alone, on the inputs phases 3 and 5 would have made
+            t0 = time.perf_counter()
+            norm = proved_svp_norm(device)
+            start_card_legs(legs, VARIANT_RUNS)
+            var_recs = phase_variants(legs, norm)
+            log(f"phase 8 done in {time.perf_counter() - t0:.1f} s")
+            log(json.dumps({"phase8": variant_numbers(var_recs)}))
+            log(card)
+            return contract_line()
+        return all_phases(device, card, legs)
+    finally:
+        stop_variant_legs(legs)
+
+
+def all_phases(device, card, legs) -> int:
+    """Phases 2-8 (phase 8's host-only legs already running; `legs`
+    takes its card legs too, SD-BKZ's after phase 2, the others after
+    phase 7) and the last two lines."""
+    from fplll_tpu_torch.enum import kernels
+
     # -- phase 2: kernel against plain version -----------------------------
     t0 = time.perf_counter()
-    forms, max_err, timing = phase_kernel_checks(device)
+    forms, max_err, timing, grouped_plain = phase_kernel_checks(device)
     ext_recs = phase_extended_checks(device)
     log("phase-2 walks " + json.dumps({
         f"{r['form']} {r['mode']}": {k: r[k] for k in (
@@ -2999,6 +3598,8 @@ def main(mesh_only: bool = False) -> int:
             "longest_walker_walk", "barren_skips")}
         for r in forms + ext_recs}))
     log(f"phase 2 done in {time.perf_counter() - t0:.1f} s")
+    # phase 8's longest leg, beside phases 3-7 (VARIANT_RUNS' comment)
+    start_card_legs(legs, ("sd-bkz",))
 
     # -- phase 3: the main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -3028,23 +3629,43 @@ def main(mesh_only: bool = False) -> int:
     mesh_rec = phase_mesh(device, svp_norm=svp_recs[0]["norm_host"])
     log(f"phase 7 done in {time.perf_counter() - t0:.1f} s")
     mesh_counts = mesh_rec["launches"]
-    path_counts = {k: surface_counts.get(k, 0) + mesh_counts.get(k, 0)
-                   for k in set(surface_counts) | set(mesh_counts)}
+
+    # -- phase 8: the variant reductions -------------------------------------
+    t0 = time.perf_counter()
+    start_card_legs(legs, ("slide", "hkz"))
+    wait_reduced(next(lg for lg in legs
+                      if (lg["run"], lg["leg"]) == ("hkz", "card")))
+    max_err = max(max_err, grouped_plain())
+    var_recs = phase_variants(legs, svp_recs[0]["norm_host"])
+    log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (the host-only "
+        "legs ran beside phases 2-7, the SD-BKZ card leg beside phases 3-7, "
+        "phase 2's grouped plain check beside the card legs)")
+    variant_counts = {}
+    for r in var_recs:
+        for form, n in r["card"]["launches"].items():
+            variant_counts[form] = variant_counts.get(form, 0) + n
+    path_counts = {k: surface_counts.get(k, 0) + mesh_counts.get(k, 0) +
+                   variant_counts.get(k, 0)
+                   for k in set(surface_counts) | set(mesh_counts) |
+                   set(variant_counts)}
 
     grouped = next(f for f in forms if f["form"].startswith("grouped"))
-    by_form = {"queue d56 count": timing["kernel_ms"],
+    by_form = {"queue d56 count r0.7": timing["kernel_ms"],
+               f"queue d56 count r{D56_KERNEL_RADIUS} (kernel alone)":
+               timing[f"kernel_ms_at_{D56_KERNEL_RADIUS}"],
                f"{grouped['form']} search": grouped["kernel_ms"]}
     log("recorded times of the one-thread-per-lane kernel (PERF.md "
         "section 6, not measured in this run): "
         + json.dumps(LANE_KERNEL_RECORDED_MS))
     log(json.dumps({"phase6": phase6_numbers(surf, surface_counts)}))
     log(json.dumps({"phase7": mesh_numbers(mesh_rec)}))
+    log(json.dumps({"phase8": variant_numbers(var_recs)}))
     log("walls of this run (s): " + json.dumps(this_run_walls(
-        main_rec, svp_recs, mesh_rec)))
+        main_rec, svp_recs, mesh_rec, var_recs)))
     log("walls recorded for PR 5 (PERF.md, not measured in this run): "
         + json.dumps(PR5_RECORDED_WALLS_S))
     log(card)
-    log(json.dumps({"kernels": [{
+    entries = [{
         "name": "enum_chunk_kernel",
         "route": "cuda",
         "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
@@ -3059,6 +3680,8 @@ def main(mesh_only: bool = False) -> int:
         "launches_phase6": {k: surface_counts.get(k, 0)
                             for k in ("single", "grouped")},
         "launches_phase7": {k: mesh_counts.get(k, 0)
+                            for k in ("single", "grouped")},
+        "launches_phase8": {k: variant_counts.get(k, 0)
                             for k in ("single", "grouped")},
         "max_abs_err": max_err,
         "ms": timing["kernel_ms"],
@@ -3079,12 +3702,26 @@ def main(mesh_only: bool = False) -> int:
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_item_walk", "busy_share",
             "donations", "barren_skips")},
-    }] + extended_entries(ext_recs, svp_recs, path_counts) +
-        [pruner_entry(surf)]}))
+    }] + extended_entries(ext_recs, svp_recs, path_counts) + \
+        [pruner_entry(surf)]
+    for e in entries:
+        # the kernels' times come from phase 2, the gradient kernel's
+        # from phase 6 (VARIANT_RUNS' comment)
+        e["measured_beside"] = ("phase 8's three host-only legs: "
+                                "single-thread CPU processes that do not "
+                                "see the card")
+    entries[-1]["measured_beside"] += (
+        "; and phase 8's SD-BKZ card leg, whose card searches took "
+        f"{var_recs[0]['card']['card_search_s']:.2f} s of its "
+        f"{var_recs[0]['card']['wall_s']:.1f} s wall")
+    log(json.dumps({"kernels": entries}))
     return contract_line()
 
 
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--pruner-ab"] and len(sys.argv) >= 3:
         sys.exit(pruner_ab([os.path.abspath(a) for a in sys.argv[2:]]))
-    sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh"]))
+    if sys.argv[1:2] == ["--variant-leg"] and len(sys.argv) == 5:
+        sys.exit(variant_leg_main(*sys.argv[2:5]))
+    sys.exit(main(mesh_only=sys.argv[1:] == ["--mesh"],
+                  variants_only=sys.argv[1:] == ["--variants"]))

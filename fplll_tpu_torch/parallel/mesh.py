@@ -49,7 +49,9 @@ GROW = 4
 
 # Set to a list to record every sweep: one list per sweep, one dict per
 # launching shard (shard, form, roots, nodes, steps, launch_to_collect_ms
-# on the host clock, and whether the shard stole after the sweep). On a
+# on the host clock, and whether the shard stole after the sweep), and
+# {shard, stole: True} for a shard that launched nothing in the sweep
+# (drained earlier) and stole after it. On a
 # card also its device, and kernel_ms between CUDA events recorded on the
 # shard's stream around its launch; start_s / end_s place those events
 # on the host clock through one reference event per card and sweep,
@@ -295,7 +297,9 @@ def _sweeps(mesh: EnumMesh, shards: List[_Shard], A: float, *, batch: int,
         if TRACE is not None:
             for r in rec:
                 r["stole"] = bool(stole[r["shard"]])
-            TRACE.append(rec)
+            idle = set(np.flatnonzero(stole)) - {r["shard"] for r in rec}
+            TRACE.append(rec + [{"shard": int(i), "stole": True}
+                                for i in sorted(idle)])
 
 
 def _reference_events(mesh: EnumMesh, busy) -> dict:

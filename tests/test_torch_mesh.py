@@ -246,6 +246,34 @@ def test_sharded_search_matches_jax_and_oracle(cpu_mesh, jax_mesh, d, seed):
     assert abs(ev.begin()[0] - ev_j.begin()[0]) <= 1e-9 * ev_j.begin()[0]
 
 
+def test_trace_records_every_sweep_and_steal(cpu_mesh, monkeypatch):
+    """mesh.TRACE holds one entry per sweep and every steal the
+    enumerator counts, also a steal by a shard that launched nothing in
+    that sweep (drained earlier; chip_smoke.py phase 7 holds the trace to
+    the counters). Such a steal is forced by a steal plan that also flags
+    every drained shard as a thief while leaving the ranges as they are."""
+    plan = tmesh._steal_plan
+
+    def plan_with_idle_thieves(cursor, own_end, n_dead):
+        cur, end, stole = plan(cursor, own_end, n_dead)
+        drained = np.asarray(cursor) >= np.asarray(own_end)
+        return cur, end, stole | (drained & (cur >= end))
+
+    monkeypatch.setattr(tmesh, "_steal_plan", plan_with_idle_thieves)
+    mut, rdiag, A = qary_tree(30, 9, 1.3)
+    monkeypatch.setattr(tmesh, "TRACE", [])
+    se = tmesh.ShardedEnumerator(cpu_mesh, batch_per_device=8,
+                                 steps_per_sweep=64)
+    se.enumerate(mut, rdiag, None, np.zeros(30), A, True, FastEvaluator(),
+                 count_mode=True)
+    trace = tmesh.TRACE
+    idle = [r for sweep in trace for r in sweep if "form" not in r]
+    assert len(trace) == se.sweeps
+    assert sum(r["stole"] for sweep in trace for r in sweep) == \
+        se.last_steals
+    assert idle and all(r["stole"] for r in idle)
+
+
 def test_sharded_count_steals_and_matches_single_device(cpu_mesh, jax_mesh):
     """tests/test_mesh.py's skewed q-ary tree (d = 30 at 1.3 GH, 8 roots
     per shard and sweep): the solution count is the JAX mesh's and the C
