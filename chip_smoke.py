@@ -24,9 +24,10 @@ Phases (each one fails the run if it fails):
      persistent grid, blocks per SM times SMs; every window answer's f32
      distance against its f64 norm), then the same tour on the host C
      core alone;
-  4. one block-60 window through DeviceEnumerator and the native C core,
-     each answer certified by the other implementation, and the f32
-     answers' excess over their exact norms (the bound slack is 1e-5);
+  4. one block-60 window (pruned, f32) through DeviceEnumerator and the
+     native C core, each answer certified by the other implementation,
+     and the f32 answers' excess over their exact norms (the bound slack
+     is 1e-5);
   5. proved SVP (d = 56), fast and proved CVP, dual SVP and sub-solutions
      (d = 50) on BKZ-20-reduced gen_intrel bases through the port's
      public functions, each against the same call host-only;
@@ -58,12 +59,21 @@ Phases (each one fails the run if it fails):
      tour at block 60 on phase 3's warm-up basis (bkz_reduction), one loop of
      slide reduction at block 60 on an LLL-reduced dim-120 q-ary basis
      (`fplll -a sld`), and HKZ on phase 5's proved-SVP basis (`fplll -a
-     hkz`); the first two launch `single` and `f32-dual` and keep 95% of
-     the host-only run's root-Hermite gain, HKZ launches `single` and
-     gives phase 5's proved norm and the host-only run's profile; per run
-     the launches per form, the windows sent to the card against those
-     the native first pass finished, the device node share and every
-     card answer's f32 distance against its f64 norm.
+     hkz`); the first two launch `single` and `f32-dual` (pruned
+     windows) and keep 95% of the host-only run's root-Hermite gain, HKZ
+     launches `f64` alone (unpruned windows), every answer within 1e-9
+     of its f64 norm and certified by the f64 C core, and gives phase
+     5's proved norm and the host-only run's profile; per run the
+     launches per form, the windows sent to the card against those the
+     native first pass finished, the device node share and every card
+     answer's distance against its f64 norm, f32 and f64 answers apart.
+
+Trees run in f64 where the search is unpruned or certified, in f32 where
+it is pruned (enum/device.py:tree_dtype): phase 3's tour launches `single`
+and `grouped` alone, phases 5 and 6 the f64 forms (the dual SVP
+`f64-dual`), phase 6's pruned Enumeration `single`. Phases 4-7 run the
+facade at its default, native first pass included (bkz_tour puts the
+environment back as it found it).
 
     python3 chip_smoke.py --mesh       # phases 1 and 7 alone (several
                                        # cards)
@@ -331,6 +341,9 @@ SHRINK_SPREAD_SEEDS = tuple(range(5, 14))
 # subtract/restore round trips (8.8e-5 measured on the block-60 window
 # of phase 4)
 F32_DIST_TOL = 2e-4
+# the same for an f64 tree (every unpruned search: enum/device.py
+# tree_dtype): its distances must sit within this of the f64 norm
+F64_DIST_TOL = 1e-9
 # the grouped check's radius, times the union best: keeps the plain
 # version, which walks the three trials one after another, near a minute
 GROUPED_RADIUS = 1.015
@@ -871,15 +884,40 @@ def gso_stats(b):
     return red, math.exp((n0 - logvol / d) / d)
 
 
+class HybridNodes:
+    """FPLLL_TPU_HYBRID_NODES set to `value` (None: unset) inside the
+    block and put back as it was after it: the C tour's device crossover,
+    and the facade's native first-pass budget (where 0 means no first
+    pass)."""
+
+    def __init__(self, value):
+        self.value = value
+
+    def __enter__(self):
+        self._saved = os.environ.get("FPLLL_TPU_HYBRID_NODES")
+        if self.value is None:
+            os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
+        else:
+            os.environ["FPLLL_TPU_HYBRID_NODES"] = str(self.value)
+        return self
+
+    def __exit__(self, *exc):
+        if self._saved is None:
+            os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
+        else:
+            os.environ["FPLLL_TPU_HYBRID_NODES"] = self._saved
+        return False
+
+
 def bkz_tour(b, strategies, block, device, hybrid):
-    """One BKZ-2.0 tour through bkz_reduction; returns (wall s, nodes,
-    device nodes, g_max, phase timers of the C tour) read from the
+    """One BKZ-2.0 tour through bkz_reduction with the C tour's crossover
+    at `hybrid` (the environment as it was afterwards); returns (wall s,
+    nodes, device nodes, g_max, phase timers of the C tour) read from the
     BKZReduction the entry point built."""
     from fplll_tpu_torch.algs.bkz import BKZReduction, bkz_reduction
     from fplll_tpu_torch.algs.bkz_param import BKZParam
     from fplll_tpu_torch.defs import BKZ_GH_BND, BKZ_MAX_LOOPS
 
-    os.environ["FPLLL_TPU_HYBRID_NODES"] = str(hybrid)
     stats = {}
     orig = BKZReduction.bkz
 
@@ -894,11 +932,12 @@ def bkz_tour(b, strategies, block, device, hybrid):
 
     BKZReduction.bkz = spy
     try:
-        t0 = time.perf_counter()
-        bkz_reduction(b, BKZParam(block, strategies,
-                                  flags=BKZ_MAX_LOOPS | BKZ_GH_BND,
-                                  max_loops=1), device=device)
-        dt = time.perf_counter() - t0
+        with HybridNodes(hybrid):
+            t0 = time.perf_counter()
+            bkz_reduction(b, BKZParam(block, strategies,
+                                      flags=BKZ_MAX_LOOPS | BKZ_GH_BND,
+                                      max_loops=1), device=device)
+            dt = time.perf_counter() - t0
     finally:
         BKZReduction.bkz = orig
     return dt, stats["nodes"], stats["dev"], stats["g_max"], stats["timers"]
@@ -910,9 +949,10 @@ class WindowAnswers:
     trials included) and every other DeviceEnumerator search (the
     facade's): the window's f64 mu and r (dual-transformed where the
     search was dual), the reported distance, the coefficients, whether
-    the search was dual and its pruning, for the f32 drift (ROADMAP.md
-    queue 3) and the f64 certificate, both computed after the run so that
-    a timed run pays only for the copies. Also counts the card searches
+    the search was dual, its pruning and its tree's element type ("f32"
+    or "f64"), for the drift of f32 and f64 answers and the f64
+    certificate, both computed after the run so that a timed run pays
+    only for the copies. Also counts the card searches
     (DeviceEnumerator.enumerate, any route), their seconds and nodes, and
     the windows the C tour handed to the card."""
 
@@ -920,6 +960,7 @@ class WindowAnswers:
         import inspect
 
         import numpy as np
+        import torch
         from fplll_tpu_torch.enum import device as device_mod
 
         self.kept = []
@@ -941,11 +982,16 @@ class WindowAnswers:
                 inside.pop()
             spy.c_tour_windows += len(muts)
             for g in np.flatnonzero(np.isfinite(dists)):
+                # the window path's rule: f64 where the window is unpruned
+                # (device.tree_dtype); pruned windows and grouped trials f32
+                dtype = "f64" if device_mod.tree_dtype(prunes[g]) == \
+                    torch.float64 else "f32"
                 spy.kept.append((np.array(muts[g], dtype=np.float64),
                                  np.array(rdiags[g], dtype=np.float64),
                                  float(dists[g]),
                                  np.array(sols[g], dtype=np.float64), False,
-                                 np.array(prunes[g], dtype=np.float64)))
+                                 np.array(prunes[g], dtype=np.float64),
+                                 dtype))
             return dists, sols, nodes
 
         def card_search(*a, **kw):
@@ -973,10 +1019,11 @@ class WindowAnswers:
                 prune = p["prune"]
                 if prune is None or len(prune) == 0:
                     prune = np.ones(len(p["rdiag"]))
+                dtype = "f64" if p["self"].dtype == torch.float64 else "f32"
                 spy.kept.append((np.array(p["mut"], dtype=np.float64),
                                  np.array(p["rdiag"], dtype=np.float64),
                                  dist, np.array(x), bool(p["dual"]),
-                                 np.array(prune, dtype=np.float64)))
+                                 np.array(prune, dtype=np.float64), dtype))
             return out
 
         device_mod.device_enumerate_windows = c_tour_windows
@@ -991,14 +1038,21 @@ class WindowAnswers:
     def drift(self) -> dict:
         """Each answer's reported distance over its vector's norm from the
         window's f64 GSO (partial_dist; the dual recurrence where the
-        answer says so), less one: how many exceed the 1e-5 bound slack,
-        and the extremes."""
-        excess = [dist / partial_dist(x, mut, r, 0, dual) - 1.0
-                  for mut, r, dist, x, dual, _ in self.kept]
-        return {"answers": len(excess),
+        answer says so), less one, for the f32 and the f64 answers apart:
+        how many, how many exceed the f32 bound slack (1e-5) and the f64
+        tolerance (F64_DIST_TOL), and the extremes."""
+        out = {}
+        for dtype in ("f32", "f64"):
+            excess = [dist / partial_dist(x, mut, r, 0, dual) - 1.0
+                      for mut, r, dist, x, dual, _, dt in self.kept
+                      if dt == dtype]
+            out[dtype] = {
+                "answers": len(excess),
                 "above_slack_1e-5": sum(e > 1e-5 for e in excess),
+                "beyond_1e-9": sum(abs(e) > F64_DIST_TOL for e in excess),
                 "largest_excess": max(excess, default=None),
                 "least_excess": min(excess, default=None)}
+        return out
 
     def certify(self) -> dict:
         """Each answer against the f64 native C core on its window: the
@@ -1011,7 +1065,7 @@ class WindowAnswers:
         from fplll_tpu_torch.native import native_enumerate
 
         certified, shorter = 0, []
-        for mut, r, _, x, dual, prune in self.kept:
+        for mut, r, _, x, dual, prune, _ in self.kept:
             norm = partial_dist(x, mut, r, 0, dual)
             out = native_enumerate(mut, r, prune, None, norm * (1 - 1e-9),
                                    True, dual, False)
@@ -1088,10 +1142,14 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
            # enumeration, device_s the device callback (root generation,
            # packing, launches), lll_s in-tour LLL, misc_s the rest
            "device_tour_timers": dev_timers, "host_tour_timers": host_timers,
-           "f32_drift": answers.drift()}
+           "drift": answers.drift()}
     log("main-path " + json.dumps(rec))
     assert dev_nodes > 0, "no window reached the card"
     assert sum(launches.values()) > 0, "the kernel was never launched"
+    # every window of the tour is pruned (default.json at block 60): the
+    # f32 forms only, the one window and the grouped trials
+    assert {k for k, v in launches.items() if v} <= {"single", "grouped"}, \
+        f"the block-60 tour launched another form: {launches}"
     assert all(g == bps * sms for g, bps, sms in grids), \
         f"a launch did not fill the card: {grids}"
     assert red_dev and red_host, "BKZ output is not LLL-reduced"
@@ -1442,22 +1500,23 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
             assert rec["card"]["resets_on_card"] > 0, "no reset on the card"
         recs.append(rec)
 
-    # dual SVP: the dual length, a float. The card runs the dual tree in
-    # f32 (a FastEvaluator search, as in the JAX package), so the length
-    # it reports carries f32 rounding; the length of its vector,
-    # recomputed in f64, must be the host's (both reported in the
-    # evaluator's scale, the recomputed ones in the basis')
+    # dual SVP: the dual length, a float. The dual tree is a
+    # FastEvaluator search and unpruned, so the card runs it in f64
+    # (enum/device.py:tree_dtype; the JAX package runs it in f32): the
+    # length it reports and the length of its vector, recomputed in f64,
+    # must both be the host's (both reported in the evaluator's scale,
+    # the recomputed ones in the basis')
     (sc, _, ec, _), (sh, _, eh, _), rec = card_and_host(
         f"dual SVP d{cvp_dim}",
         lambda **kw: shortest_vector_ex(b.copy(), flags=SVP_DUAL, **kw),
-        device, ("f32-dual",))
+        device, ("f64-dual",))
     lc, lh = dual_length(b, ec.begin()[1]), dual_length(b, eh.begin()[1])
     rec.update(status=(sc, sh), length_card=lc, length_host=lh,
                reported_card=ec.begin()[0], reported_host=eh.begin()[0])
     log("svp-cvp " + json.dumps(rec))
     assert sc == sh == 0 and abs(lc - lh) <= PHASE5_RTOL * lh, rec
     assert abs(rec["reported_card"] - rec["reported_host"]) <= \
-        F32_DIST_TOL * rec["reported_host"], rec
+        PHASE5_RTOL * rec["reported_host"], rec
     recs.append(rec)
 
     # sub-solutions: each record is a passing node (its recomputed
@@ -1943,7 +2002,9 @@ def surfaces_cli(device, svp=CLI_SVP, cvp=CLI_CVP, pipe=True) -> dict:
            "norm_host": norm_host}
     log("surfaces " + json.dumps(rec))
     assert rc == st == 0 and norm_card == norm_host > 0, rec
-    assert sum(card.launches.values()) > 0, "fplll -a svp launched nothing"
+    # a proved search (an error-bounded evaluator): the f64 form only
+    assert set(card.launches) == {"f64"}, \
+        f"fplll -a svp launched {card.launches}, not f64"
     assert not host.launches, "the host certificate launched"
     out["svp"] = rec
 
@@ -1992,7 +2053,8 @@ def surfaces_cli(device, svp=CLI_SVP, cvp=CLI_CVP, pipe=True) -> dict:
            "offset_bound": R, "gaussian_heuristic": gh}
     log("surfaces " + json.dumps(rec))
     assert rc == st == 0 and dist_card == dist_host, rec
-    assert sum(card.launches.values()) > 0, "fplll -a cvp launched nothing"
+    assert set(card.launches) == {"f64"}, \
+        f"fplll -a cvp launched {card.launches}, not f64"
     assert not host.launches, "the host certificate launched"
     out["cvp"] = rec
     return out
@@ -2312,7 +2374,10 @@ def surfaces_veneer(device, svp=CLI_SVP, norm=None,
     prune = np.asarray(pp.coefficients)
     est = gh_tree_estimate(rdiag, prune, math.ldexp(gh, -normexp))
     enum = fpylll.Enumeration(M, nr_solutions=1)
-    with PathSpy() as en:
+    # this step holds the pruned f32 form on the card: the facade's native
+    # first pass, on by default, could finish the tree on the host, so it
+    # is off for this call alone (logged as native_first_pass "off")
+    with PathSpy() as en, HybridNodes(0):
         t0 = time.perf_counter()
         dist, coords = enum.enumerate(0, d, gh, 0, pruning=pp.coefficients)[0]
         torch.cuda.synchronize()
@@ -2326,14 +2391,18 @@ def surfaces_veneer(device, svp=CLI_SVP, norm=None,
            "pruning_run": {"wall_s": prune_s, **gs.numbers(),
                            "kernel_launches": launches,
                            "expectation": pp.expectation},
-           "enumeration": {**en.record(enum_s), "tree_estimate": est,
+           "enumeration": {**en.record(enum_s), "native_first_pass": "off",
+                           "tree_estimate": est,
                            "radius": gh, "dist": dist, "exact": exact,
                            "c_core_inside_0.999": float(cert[1])}}
     log("surfaces " + json.dumps(rec))
-    assert sum(sv.launches.values()) > 0, "SVP.shortest_vector launched nothing"
+    assert set(sv.launches) == {"f64"}, \
+        f"SVP.shortest_vector launched {sv.launches}, not f64"
     assert norm is None or rec["svp"]["norm"] == norm, (rec, norm)
     assert gs.calls and len(gs.on("cuda")) == len(gs.calls) == launches, rec
-    assert sum(en.launches.values()) > 0, "Enumeration launched nothing"
+    # a pruned search: the f32 form
+    assert set(en.launches) == {"single"}, \
+        f"the pruned Enumeration launched {en.launches}, not single"
     assert abs(exact - dist) <= F32_DIST_TOL * exact, (exact, dist)
     assert math.isinf(cert[1]), \
         f"the C core found {cert[1]} inside the card's {exact}"
@@ -2910,7 +2979,7 @@ class VariantSpy(WindowAnswers):
                 "facade_enum_s": self.facade_enum_s,
                 "card_search_s": self.search_s,
                 "outside_enum_s": wall_s - self.facade_enum_s,
-                "f32_drift": self.drift()}
+                "drift": self.drift()}
 
 
 class HostOnly:
@@ -2922,19 +2991,15 @@ class HostOnly:
         from fplll_tpu_torch.enum import api
 
         self._registered = api.registered_enumerator()
-        self._env = os.environ.get("FPLLL_TPU_HYBRID_NODES")
         api.set_external_enumerator(lambda *a, **kw: None)
-        os.environ["FPLLL_TPU_HYBRID_NODES"] = "0"
+        self._env = HybridNodes(0).__enter__()
         return self
 
     def __exit__(self, *exc):
         from fplll_tpu_torch.enum import api
 
         api.set_external_enumerator(self._registered)
-        if self._env is None:
-            os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
-        else:
-            os.environ["FPLLL_TPU_HYBRID_NODES"] = self._env
+        self._env.__exit__(*exc)
         return False
 
 
@@ -3023,7 +3088,7 @@ def variant_call(run, device, block=VARIANT_BLOCK):
         return (f"slide block {block}, one loop",
                 lambda b: run_fplll(argv, b, (0, RED_BKZ_LOOPS_LIMIT)),
                 ("single", "f32-dual"))
-    return "HKZ", lambda b: run_fplll(["-a", "hkz"], b), ("single",)
+    return "HKZ", lambda b: run_fplll(["-a", "hkz"], b), ("f64",)
 
 
 def variant_leg(run, leg, device, **sizes) -> dict:
@@ -3177,6 +3242,9 @@ def phase_variants(legs, svp_norm) -> list:
         for form in card["forms"]:
             assert card["launches"].get(form, 0) > 0, \
                 f"{run}: no {form} launch on the card ({card['launches']})"
+        # every f64 answer (an unpruned window's) at its f64 norm
+        assert card["drift"]["f64"]["beyond_1e-9"] == 0, \
+            (run, card["drift"])
         assert card["lll_reduced"] and host["lll_reduced"], \
             f"{run}: output not LLL-reduced"
         if run == "hkz":
@@ -3191,6 +3259,13 @@ def phase_variants(legs, svp_norm) -> list:
             assert card["norm_b1"] == host["norm_b1"] == svp_norm, \
                 (card["norm_b1"], host["norm_b1"], svp_norm)
             assert rel <= HKZ_RTOL, rel
+            # HKZ's windows are unpruned: f64 only, and the f64 C core
+            # finds no shorter vector behind any card answer
+            assert set(card["launches"]) == {"f64"}, card["launches"]
+            assert card["drift"]["f32"]["answers"] == 0 < \
+                card["drift"]["f64"]["answers"], card["drift"]
+            cert = card["f64_certificate"]
+            assert cert["certified"] == cert["answers"] > 0, cert
         else:
             r0, rc, rh = card["rhf_start"], card["rhf"], host["rhf"]
             rec["quality"] = {"rhf_start": r0, "rhf_card": rc,
@@ -3212,7 +3287,7 @@ def variant_numbers(recs) -> dict:
     keys = ("wall_s", "launches", "route", "facade_windows_to_card",
             "facade_windows_native_first_pass", "c_tour_windows_to_card",
             "device_node_share", "facade_enum_s", "card_search_s",
-            "outside_enum_s", "f32_drift", "f64_certificate", "process_s")
+            "outside_enum_s", "drift", "f64_certificate", "process_s")
     return {r["case"]: {"card": {k: r["card"][k] for k in keys},
                         "host_wall_s": r["host"]["wall_s"],
                         "host_process_s": r["host"]["process_s"],

@@ -13,12 +13,13 @@ follow the reference contracts (enumerate_base.h:79-172), so this
 backend is interchangeable with the host oracle behind
 fplll_tpu_torch.enum.api.
 
-Trees run in f32 (heuristic searches: BKZ windows) or f64 (the
-error-bounded evaluators of the proved SVP/CVP solvers), primal or with
-the dual recurrence, and report per-level sub-solutions on request; the
-JAX package's TPU stand-in for f64 (compensated f32 pairs) has no role
-on the card. Trees taller than the kernel's height run through the
-chunked deep-tree search.
+Trees run in f64 where the answer must be exact (every unpruned search,
+and the error-bounded evaluators of the proved SVP/CVP solvers) and in
+f32 where the search is pruned, a heuristic by design (tree_dtype);
+primal or with the dual recurrence, and report per-level sub-solutions
+on request. The JAX package's TPU stand-in for f64 (compensated f32
+pairs) has no role on the card. Trees taller than the kernel's height
+run through the chunked deep-tree search.
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from .kernels import MAX_LEVELS, enum_run, enum_run_grouped
 
 __all__ = ["DeviceEnumerator", "device_external_enumerator",
            "device_enumerate_windows", "register_device_backend",
-           "gh_tree_estimate", "auto_batch"]
+           "gh_tree_estimate", "auto_batch", "tree_dtype"]
 
 _F32 = torch.float32
 _F64 = torch.float64
@@ -57,10 +58,14 @@ class DeviceEnumerator:
         # BKZ window path sets them so that every window of a tour has
         # one launch shape
         self.pin_m = self.pin_nfix = self.pin_R = 0
-        # the tree runs in f32 (heuristic searches) or f64 (certified
-        # ones, as the reference runs every tree, nr.h:41); candidates are
-        # re-verified exactly by the evaluator, and an f32 bound gets a
-        # relative slack so f32 rounding cannot prune the true solution
+        # the tree runs in f64 (as the reference runs every tree, nr.h:41)
+        # or in f32 (pruned searches: tree_dtype). An f32 bound gets a
+        # relative slack of 1e-5, which keeps the rounding of a vector's
+        # own distance from pruning it at the bound, but the f32 walk is
+        # not exact: on unpruned d = 56 windows its distances sat from
+        # -5.4e-4 to +1.5e-4 off the f64 norms (NVIDIA H100), so a vector
+        # that much shorter than the answer can be pruned or ranked below
+        # it (tests/test_torch_f32_drift.py)
         if dtype not in (_F32, _F64):
             raise ValueError(f"tree dtype float32 or float64, not {dtype}")
         self.dtype = dtype
@@ -426,6 +431,21 @@ def _visible_mesh(device):
     return make_enum_mesh()
 
 
+def unpruned(prune) -> bool:
+    """Whether a search prunes nothing: no coefficients, or all ones."""
+    return prune is None or bool(np.all(np.asarray(prune) == 1.0))
+
+
+def tree_dtype(prune, certified: bool = False):
+    """The element type of one search's tree, fixed by what its caller
+    needs: f64 where the answer must be exact, an unpruned search or a
+    `certified` one (an error-bounded evaluator), as the reference runs
+    every tree (nr/nr.h:41); f32 with the 1e-5 bound slack for a pruned
+    search, which is a heuristic by design and whose answer BKZ accepts
+    in exact integers."""
+    return _F64 if certified or unpruned(prune) else _F32
+
+
 def _make_enumerator(est_nodes: float = 0.0, device=None, dtype=_F32):
     """The device enumerator for the facade: the sharded enumerator over
     every card when more than one is visible (the JAX package's rule and
@@ -553,13 +573,13 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     trial = maxdist
     if not count_mode and maxdist > 4.0 * gh2:
         trial = min(gh2 / 16.0, maxdist)
-    # f32 tree for heuristic searches (BKZ windows: FastEvaluator and
-    # exact postprocessing); certified completeness (the error-bounded
-    # evaluators of the proved SVP/CVP solvers) needs more than a 24-bit
-    # mantissa: the card's hardware f64, as the reference runs every tree
-    # (nr/nr.h:41). The JAX package's TPU stand-in for f64, compensated
-    # f32 pairs, has no role here.
-    dtype = _F64 if isinstance(evaluator, ErrorBoundedEvaluator) else _F32
+    # f64 for every unpruned search and every certified one (the
+    # error-bounded evaluators of the proved solvers): the f32 walk's
+    # distances drift past its 1e-5 slack on unpruned trees, and the
+    # evaluator ranks candidates by them. Pruned searches (BKZ windows)
+    # keep f32. The JAX package's TPU stand-in for f64, compensated f32
+    # pairs, has no role here.
+    dtype = tree_dtype(prune, isinstance(evaluator, ErrorBoundedEvaluator))
     while True:
         enum = _make_enumerator(gh_tree_estimate(rdiag, prune, trial),
                                 device=device, dtype=dtype)
@@ -666,9 +686,15 @@ def _grouped_device_windows(muts, rdiags, prunes, maxdists, device):
     keeps only the best trial; trials bounded out by a better sibling
     report inf.
 
+    The launch is f32: its trials must be pruned (tree_dtype), which
+    rerandomized trials are; it raises on an unpruned one.
+
     Returns (dists, sols, total_nodes) or None to decline (trees taller
     than the kernel; the caller runs the per-trial loop)."""
     G, d, _ = muts.shape
+    if any(unpruned(p) for p in prunes):
+        raise ValueError("the grouped launch runs pruned trials only; an "
+                         "unpruned tree runs in f64 (tree_dtype)")
     B = int(os.environ.get("FPLLL_TPU_GROUP_BATCH", "1024"))
     t_start = time.time()
     packed = _pack_grouped(muts, rdiags, prunes, maxdists, device, B)
@@ -732,8 +758,11 @@ def device_enumerate_windows(muts, rdiags, prunes, maxdists, device=None):
     mesh; FPLLL_TPU_GROUPED_LAUNCH=0 runs them one by one instead), and
     only the trial holding the shortest vector reports, since the caller
     keeps one trial and compares the distances it gets as if they shared
-    a scale. Mirrors the facade's policies: f32 tree
-    with slack + exact-integer postprocessing upstream, GH iterative
+    a scale. The C tour rerandomizes pruned windows only; an unpruned
+    group skips the f32 grouped launch. Mirrors the facade's policies:
+    the tree's dtype from its pruning (tree_dtype: f64 for an unpruned
+    window, such as every window of HKZ; f32 with its 1e-5 slack and
+    exact-integer acceptance upstream for a pruned one), GH iterative
     deepening for bounds far past the Gaussian heuristic.
     """
     device = resolve_device(device)
@@ -748,7 +777,9 @@ def device_enumerate_windows(muts, rdiags, prunes, maxdists, device=None):
     rdiags, maxdists = rdiags * scale[:, None], maxdists * scale
     out = None
     if os.environ.get("FPLLL_TPU_GROUPED_LAUNCH", "1") != "0":
-        out = _grouped_device_windows(muts, rdiags, prunes, maxdists, device)
+        if not any(unpruned(p) for p in prunes):
+            out = _grouped_device_windows(muts, rdiags, prunes, maxdists,
+                                          device)
         if out is None:
             out = _mesh_grouped_windows(muts, rdiags, prunes, maxdists,
                                         device)
@@ -786,8 +817,9 @@ def _mesh_grouped_windows(muts, rdiags, prunes, maxdists, device):
 
 
 def _trial_windows(muts, rdiags, prunes, maxdists, device):
-    """The G problems one by one, each through a DeviceEnumerator with the
-    BKZ window path's launch geometry."""
+    """The G problems one by one, each through a DeviceEnumerator (or the
+    mesh's ShardedEnumerator) with the BKZ window path's launch geometry,
+    in the dtype its pruning asks for (tree_dtype)."""
     from .evaluator import FastEvaluator
 
     G, m, _ = muts.shape
@@ -801,7 +833,7 @@ def _trial_windows(muts, rdiags, prunes, maxdists, device):
         ev = FastEvaluator(nr_solutions=1)
         enum = _make_enumerator(
             gh_tree_estimate(rdiags[g], prunes[g], float(maxdists[g])),
-            device=device)
+            device=device, dtype=tree_dtype(prunes[g]))
         if isinstance(enum, DeviceEnumerator):
             # root factor and geometry pins of the JAX package's window
             # path (tpu.py:1211-1219): one launch geometry per window size

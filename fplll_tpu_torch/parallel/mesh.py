@@ -388,8 +388,10 @@ class ShardedEnumerator:
         self.sync_steps = steps_per_sweep
         self.max_device_levels = max_device_levels
         self.dtype = _tree_dtype(dtype, torch.float64)
-        # as DeviceEnumerator: an f32 bound gets a relative slack so that
-        # f32 rounding cannot prune the true solution
+        # as DeviceEnumerator: an f32 bound gets a relative slack of 1e-5;
+        # the facade asks for f32 only for pruned searches
+        # (device.tree_dtype), since the f32 walk's distances drift past
+        # that slack on unpruned trees
         self.bound_slack = 1.0 + 1e-5 if self.dtype == torch.float32 else 1.0
         self.nodes = np.zeros(0, dtype=np.int64)
         self.last_steals = self.sweeps = 0

@@ -42,3 +42,29 @@ def load_jax_native_cores(tries: int = 120, pause: float = 0.5) -> None:
 @pytest.fixture(autouse=True)
 def jax_native_cores():
     load_jax_native_cores()
+
+
+@pytest.fixture
+def jax_tree_dtype_rule(monkeypatch):
+    """The port's tree-dtype rule (fplll_tpu_torch/enum/device.py
+    tree_dtype) on the JAX package's side, patched at run time: an f32
+    tree whose pruning is none or all ones runs the JAX package's f64 walk
+    instead (`_enum_run` at float64, the tree it runs for certified
+    searches on a host with doubles, without the f32 bound slack). The
+    JAX package's facade and window path run their unpruned FastEvaluator
+    trees in f32; the port runs them in f64, so a test that holds the
+    port's entry points against the JAX package's on unpruned trees
+    compares two f64 walks. Pruned trees keep f32 on both sides."""
+    import numpy as np
+    from fplll_tpu.enum import tpu
+    from fplll_tpu.jaxsetup import jnp
+    from fplll_tpu.parallel import mesh
+
+    for cls in (tpu.TPUEnumerator, mesh.ShardedEnumerator):
+        def enumerate(self, mut, rdiag, prune, *a, _orig=cls.enumerate,
+                      **kw):
+            if self.dtype == jnp.float32 and (
+                    prune is None or np.all(np.asarray(prune) == 1.0)):
+                self.dtype, self.bound_slack = jnp.float64, 1.0
+            return _orig(self, mut, rdiag, prune, *a, **kw)
+        monkeypatch.setattr(cls, "enumerate", enumerate)

@@ -21,6 +21,7 @@ from fplll_tpu_torch.enum import device as tdev
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.enum.evaluator import FastEvaluator
 from jax_reference import jax_native_cores  # noqa: F401 (autouse)
+from jax_reference import jax_tree_dtype_rule  # noqa: F401
 from test_enum import exact_norm, setup
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
@@ -85,9 +86,11 @@ def test_count_mode_matches_jax_enumerator(monkeypatch):
     np.testing.assert_array_equal(et.nodes, ej.nodes)
 
 
-def test_window_path_g1_matches_jax(monkeypatch):
+def test_window_path_g1_matches_jax(monkeypatch, jax_tree_dtype_rule):
     """device_enumerate_windows with one problem: the window pins (root
-    factor 16, m/nfix/R buckets) and GH deepening of both packages."""
+    factor 16, m/nfix/R buckets) and GH deepening of both packages. The
+    window is unpruned, so both run their f64 walk (the JAX package's by
+    jax_tree_dtype_rule)."""
     monkeypatch.setenv("FPLLL_TPU_MESH", "0")
     d = 30
     _, mut, rdiag, _, A = window(d, 1, 1.2)
@@ -100,10 +103,11 @@ def test_window_path_g1_matches_jax(monkeypatch):
     assert tnodes == jnodes
 
 
-def test_facade_device_backend_matches_jax(monkeypatch):
+def test_facade_device_backend_matches_jax(monkeypatch, jax_tree_dtype_rule):
     """A dim-34 search through each package's Enumeration facade with the
     native first pass off, so both hand the whole tree to their device
-    kernel: the same vector and the same node count."""
+    kernel, an unpruned f64 walk (the JAX package's by
+    jax_tree_dtype_rule): the same vector and the same node count."""
     from fplll_tpu.enum.api import Enumeration as JaxEnumeration
     from fplll_tpu_torch.core.gso import MatGSO
     from fplll_tpu_torch.defs import GSO_INT_GRAM
@@ -125,9 +129,9 @@ def test_facade_device_backend_matches_jax(monkeypatch):
     gso_t.update_gso()
     ev_t = FastEvaluator()
     et = Enumeration(gso_t, ev_t)
-    runs = kernels.PLAIN_RUNS["single"]
+    runs = kernels.PLAIN_RUNS["f64"]
     et.enumerate(0, d, A0, 0)
-    assert kernels.PLAIN_RUNS["single"] > runs
+    assert kernels.PLAIN_RUNS["f64"] > runs
 
     assert list(ev_t.begin()[1]) == list(ev_j.begin()[1])
     assert exact_norm(b, ev_t.begin()[1]) > 0

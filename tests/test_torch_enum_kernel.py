@@ -195,10 +195,13 @@ def test_best_root_and_coordinates_reproduce_the_distance():
     assert abs(dist - float(raw["best_dist"][0])) <= 1e-4 * dist
 
 
-def rerandomized_windows(d, G, seed=1):
+def rerandomized_windows(d, G, seed=1, pruned=False):
     """G bases of one lattice (an LLL-reduced basis and G-1 unimodular
-    rerandomizations, re-LLL-reduced): normalized (mu^T, r), the same
-    absolute radius in each basis' scale, and each scale's exponent."""
+    rerandomizations, re-LLL-reduced): normalized (mu^T, r), the pruning
+    (none, or with `pruned` a mild linear one, 1 down to 0.9: the grouped
+    launch takes pruned trials only, as the C tour rerandomizes pruned
+    windows only), the same absolute radius in each basis' scale, and
+    each scale's exponent."""
     import random
 
     import fplll_tpu_torch as ft
@@ -227,14 +230,15 @@ def rerandomized_windows(d, G, seed=1):
         rdiags.append(np.asarray(rdiag))
         maxds.append(math.ldexp(A_abs, -normexp))
         exps.append(normexp)
-    return (np.stack(muts), np.stack(rdiags), np.ones((G, d)),
+    prune = np.linspace(1.0, 0.9, d) if pruned else np.ones(d)
+    return (np.stack(muts), np.stack(rdiags), np.array([prune] * G),
             np.asarray(maxds), np.asarray(exps))
 
 
 def test_grouped_plain_matches_jax_per_trial_windows(monkeypatch):
-    """Three bases of one unpruned lattice: the port's grouped launch (plain
-    version, one shared bound carried across the problems) finds the same
-    union best as the JAX package's per-trial window loop."""
+    """Three bases of one lattice, mildly pruned: the port's grouped launch
+    (plain version, one shared bound carried across the problems) finds
+    the same union best as the JAX package's per-trial window loop."""
     from fplll_tpu.enum import tpu as jtpu
     from fplll_tpu_torch.enum import device as tdev
 
@@ -242,7 +246,8 @@ def test_grouped_plain_matches_jax_per_trial_windows(monkeypatch):
     monkeypatch.setenv("FPLLL_TPU_MESH_TRIALS", "0")
     monkeypatch.setenv("FPLLL_TPU_MESH", "0")
     monkeypatch.setenv("FPLLL_TPU_GROUP_BATCH", "128")
-    muts, rdiags, prunes, maxds, exps = rerandomized_windows(30, 3)
+    muts, rdiags, prunes, maxds, exps = rerandomized_windows(30, 3,
+                                                             pruned=True)
     jd, jsol, _ = jtpu.device_enumerate_windows(muts, rdiags, prunes, maxds)
     monkeypatch.delenv("FPLLL_TPU_GROUPED_LAUNCH")
     grouped = kernels.PLAIN_RUNS["grouped"]
@@ -274,7 +279,8 @@ def test_grouped_trials_in_different_scales(monkeypatch, grouped_launch):
 
     monkeypatch.setenv("FPLLL_TPU_GROUPED_LAUNCH", grouped_launch)
     monkeypatch.setenv("FPLLL_TPU_GROUP_BATCH", "128")
-    muts, rdiags, prunes, maxds, _ = rerandomized_windows(30, 3)
+    muts, rdiags, prunes, maxds, _ = rerandomized_windows(30, 3,
+                                                          pruned=True)
     ref, ref_sol, _ = tdev.device_enumerate_windows(muts, rdiags, prunes,
                                                     maxds, device="cpu")
     f = np.array([1.0, 4.0, 0.0625])

@@ -6,9 +6,11 @@ device crossover lowered to dimension 12 (as tests/test_enum.py lowers
 it), both packages send every search tree to their device path: the
 JAX package's XLA kernel, the port's kernel wrappers, whose plain version
 runs on CPU tensors (f64 trees for the error-bounded evaluators of the
-proved solvers, f32 dual trees, f64 sub-solution trees). Both must return
-the same status and the same exact answer; the port's counters show that
-its kernel route ran.
+proved solvers, for the unpruned dual trees and for the sub-solution
+trees). The JAX package runs its unpruned FastEvaluator trees, the dual
+ones, in f32; `jax_tree_dtype_rule` switches them to its f64 walk at run
+time, the port's rule. Both must return the same status and the same
+exact answer; the port's counters show that its kernel route ran.
 """
 
 import os
@@ -25,13 +27,14 @@ from fplll_tpu_torch.defs import CVPM_PROVED, SVP_DUAL
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.interop import basis_from_rows
 from jax_reference import jax_native_cores  # noqa: F401 (autouse)
+from jax_reference import jax_tree_dtype_rule  # noqa: F401
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
 torch.set_num_threads(2)
 
 
 @pytest.fixture
-def device_route(monkeypatch):
+def device_route(monkeypatch, jax_tree_dtype_rule):
     import fplll_tpu.enum.tpu as jax_tpu
     import fplll_tpu_torch.enum.device as port_device
 
@@ -117,11 +120,12 @@ def test_svp_subsolutions_match_jax(device_route, kind, d, seed):
 
 @pytest.mark.parametrize("kind,d,seed", DUAL_CASES, ids=IDS[:2])
 def test_dual_svp_matches_jax(device_route, kind, d, seed):
-    """SVP_DUAL: the same shortest dual length to 1e-9 relative and the
-    same dual coefficients up to sign."""
+    """SVP_DUAL (an unpruned tree: f64 in both packages): the same
+    shortest dual length to 1e-9 relative and the same dual coefficients
+    up to sign."""
     bj, bt = bases(kind, d, seed)
     sj, xj, ej, _ = jax_shortest_vector_ex(bj, flags=SVP_DUAL)
-    with ran("f32-dual"):
+    with ran("f64-dual"):
         st, xt, et, _ = shortest_vector_ex(bt, flags=SVP_DUAL)
     assert st == sj == 0
     assert et.begin()[0] == pytest.approx(ej.begin()[0], rel=1e-9)

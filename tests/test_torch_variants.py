@@ -13,9 +13,13 @@ The device crossover is forced low in both packages
 (FPLLL_TPU_HYBRID_NODES=50, `_MIN_TPU_DIM` 34, single trials, one device,
 1024-lane batches), so windows of dimension 34 and more take each
 package's device path: the JAX package's XLA kernel, the port's kernel
-wrappers, whose plain version runs on CPU tensors. On the same seed the
-reduced bases must be equal as integers and the node counts equal; the
-port's plain-version counters show which forms ran.
+wrappers, whose plain version runs on CPU tensors. The port runs HKZ's
+unpruned windows in f64 (`enum/device.py:tree_dtype`), where the JAX
+package runs f32; `jax_tree_dtype_rule` switches the JAX package's
+unpruned trees to its f64 walk at run time. Slide's and SD-BKZ's windows
+are pruned (`default.json`) and stay f32 on both sides. On the same seed
+the reduced bases must be equal as integers and the node counts equal;
+the port's plain-version counters show which forms ran.
 """
 
 import json
@@ -35,15 +39,17 @@ from fplll_tpu_torch.cli import main as port_main
 from fplll_tpu_torch.enum import kernels
 from fplll_tpu_torch.interop import basis_from_rows, strategies_from_json
 from jax_reference import jax_native_cores  # noqa: F401 (autouse)
+from jax_reference import jax_tree_dtype_rule  # noqa: F401
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
 torch.set_num_threads(2)
 
 
 @pytest.fixture
-def device_route(monkeypatch):
+def device_route(monkeypatch, jax_tree_dtype_rule):
     """Both packages' windows of dimension 34 and more on their device
-    path; yields (the JAX package's strategies, the port's)."""
+    path, unpruned ones in f64; yields (the JAX package's strategies, the
+    port's)."""
     import fplll_tpu.enum.tpu as jax_tpu
     import fplll_tpu_torch.enum.device as port_device
     from fplll_tpu.threads import set_threads as jax_set_threads
@@ -157,7 +163,7 @@ def test_hkz_matches_jax(device_route, monkeypatch):
     assert st == sj == ft.RED_SUCCESS
     assert bt.a.tolist() == bj.a.tolist()
     assert len(nodes) == 2 and nodes[1] == nodes[0] > 0
-    assert runs.get("single", 0) > 0, runs
+    assert runs.get("f64", 0) > 0 and "single" not in runs, runs
 
 
 @pytest.mark.parametrize("argv,make", [
@@ -186,7 +192,8 @@ def test_cli_variants_match_jax(device_route, monkeypatch, capsys, argv,
     (rj, oj, _), (rt, ot, runs) = outs
     assert ot == oj and ot.startswith("[[")
     assert rt == rj
-    assert runs.get("single", 0) > 0, runs
+    form = "f64" if argv == ["-a", "hkz"] else "single"
+    assert runs.get(form, 0) > 0, runs
 
 
 def test_failing_dual_launch_fails_the_self_dual_tour(device_route,
