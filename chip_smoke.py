@@ -7,8 +7,11 @@ Phases (each one fails the run if it fails):
   1. report the card, build the CUDA kernels, one nvcc per source started
      together (the enumeration kernel's every template instance and the
      pruner's gradient kernel, `-Xptxas -v` printed; the enumeration's
-     instances without spills, its six f32 instances of BKZ-2.0 at the
-     registers recorded in BKZ_F32_PTXAS) and the native C cores;
+     instances without stack or spills, its six f32 instances of BKZ-2.0
+     at the registers recorded in BKZ_F32_PTXAS; both f64 instances'
+     registers, blocks per SM and walkers at M = 32, 64 and 128, the f64
+     primal one at two blocks per SM or more at M <= 64) and the native C
+     cores;
   2. the kernel against its plain PyTorch version on the card, for each
      launch form (root queue, with the plain version at 1024 and 16384
      lanes, a single root with nfix = 0) in count and search mode, a
@@ -92,7 +95,15 @@ environment back as it found it).
         # timing, so that every checkout is measured the same way
 
 Phase 2 also holds the f64, dual and sub-solution forms of the kernel
-against the plain version.
+against the plain version. The f64 primal form runs on its own instance
+(enum_chunk_f64_kernel, with the lookahead); the same trees also run on
+the extended instance (kernels._enum_run_extended),
+in turns on one card: phase 2's d = 40 tree (with each instance's ns per
+step at a grid of one block and latency floor), phase 5's proved SVP,
+and phase 8's HKZ windows, recorded by its card leg and replayed once
+both HKZ card legs have reduced, beside the SD-BKZ and slide card legs.
+The second HKZ card leg (the repeat leg, started once the first has
+reduced) hands its window lists for comparison with the first's.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Imports only torch, numpy
@@ -788,6 +799,57 @@ def ext_problem(d, seed, dtype, dual, device):
     return pack, (mut, rdiag, prune, A)
 
 
+def f64_instances(name, pack, kw, k_ms, p_out, m_real) -> dict:
+    """The f64 primal tree of one extended check on both f64 instances,
+    on one card, in turns: the f64 primal instance (its first time is the
+    check's kernel_ms, `k_ms`), the extended instance
+    (kernels._enum_run_extended), the extended one again and the f64
+    primal one again, each
+    the median of 3 CUDA-event timings of the wrapper. The extended
+    instance's answer against the plain version, which walks with the
+    lookahead: the best distance to EXT_RTOL (the two walks round trip
+    the center sums at different nodes), in count mode the counts to
+    compare_counts' tolerance. In count mode also each instance at a
+    grid of one block: its ns per step (the time over the longest walker
+    walk, with 8 walkers on the card the latency of one step) and the
+    latency floor of its persistent-grid launch, the longest work item's
+    steps times that."""
+    from fplll_tpu_torch.enum import kernels
+
+    runs = {"f64 primal": lambda **x: kernels.enum_run(**pack, **kw, **x),
+            "extended": lambda **x: kernels._enum_run_extended(
+                **pack, **kw, **x)}
+    ms = {"f64 primal": [k_ms], "extended": []}
+    outs = {}
+    for inst in ("extended", "extended", "f64 primal"):
+        outs[inst], t = wrapper_ms(runs[inst])
+        ms[inst].append(t)
+    e_out = outs["extended"]
+    kb, pb = float(e_out["best_dist"][0]), float(p_out["best_dist"][0])
+    assert abs(kb - pb) <= EXT_RTOL["f64"] * pb, \
+        f"{name} on the extended instance: best {kb} vs {pb}"
+    rec = {"kernel_ms": ms, "extended_best_abs_err": abs(kb - pb),
+           "extended_donations": int(e_out["donations"]),
+           "extended_barren_skips": int(e_out["barren_skips"])}
+    if kw["count_mode"]:
+        rec["extended_counts_exact"], _ = compare_counts(
+            f"{name} on the extended instance", e_out, p_out, m_real)
+        for inst, run in runs.items():
+            one, one_ms = wrapper_ms(lambda: run(grid=1), reps=1)
+            ns = one_ms * 1e6 / int(one["steps"])
+            rec[inst] = {
+                "grid_1_block": {"kernel_ms": one_ms,
+                                 "walkers": one["geometry"]["walkers"],
+                                 "longest_walker_walk": int(one["steps"]),
+                                 "ns_per_step": ns},
+                "root_steps": int(outs[inst]["root_steps"]),
+                "latency_floor_ms": int(outs[inst]["root_steps"]) * ns * 1e-6,
+                **{k: outs[inst]["geometry"][k]
+                   for k in ("walkers", "blocks_per_sm")}}
+    log(f"f64-instances {name} " + json.dumps(rec))
+    return rec
+
+
 def phase_extended_checks(device, cases=EXT_CASES):
     """Phase 2, the forms of the proved solvers: each against its plain
     version on the card with the tolerances of the CPU tests of the host
@@ -795,9 +857,11 @@ def phase_extended_checks(device, cases=EXT_CASES):
     nothing, count mode's per-level nodes, solution count and sub-solution
     distances exactly equal and both modes' best distances bit-equal;
     where it donated, the solution count equal, the nodes to
-    compare_counts' tolerance and the distances to EXT_RTOL. Returns the
-    records, each with the largest difference of its best distance or a
-    sub-solution distance from the plain version's (max_abs_err)."""
+    compare_counts' tolerance and the distances to EXT_RTOL. The f64
+    primal tree also runs on the extended instance (f64_instances).
+    Returns the records, each with the largest difference of its best
+    distance or a sub-solution distance from the plain version's
+    (max_abs_err)."""
     import numpy as np
     import torch
     from fplll_tpu_torch.enum import kernels
@@ -855,6 +919,9 @@ def phase_extended_checks(device, cases=EXT_CASES):
             rec["bound_ms"], rec["bound_by"], (rec["R_real"],) = bound_ms(
                 pack, k_out["nodes"], len(k_out["best_dist"]), d, [mr],
                 subsols)
+            if form == "f64":
+                rec["instances"] = f64_instances(name, pack, kw, k_ms, p_out,
+                                                 mr)
             recs.append(rec)
             log("kernel-check " + json.dumps(rec))
     return recs
@@ -954,7 +1021,9 @@ class WindowAnswers:
     certificate, both computed after the run so that a timed run pays
     only for the copies. Also counts the card searches
     (DeviceEnumerator.enumerate, any route), their seconds and nodes, and
-    the windows the C tour handed to the card."""
+    the windows the C tour handed to the card, and keeps each list it
+    handed (`windows`: f64 copies of muts, rdiags, prunes, maxdists and
+    the distances that came back)."""
 
     def __enter__(self):
         import inspect
@@ -963,7 +1032,7 @@ class WindowAnswers:
         import torch
         from fplll_tpu_torch.enum import device as device_mod
 
-        self.kept = []
+        self.kept, self.windows = [], []
         self.searches = self.search_nodes = self.c_tour_windows = 0
         self.search_s = 0.0
         windows = device_mod.device_enumerate_windows
@@ -981,6 +1050,8 @@ class WindowAnswers:
             finally:
                 inside.pop()
             spy.c_tour_windows += len(muts)
+            spy.windows.append(tuple(np.array(a, dtype=np.float64) for a in (
+                muts, rdiags, prunes, maxdists, dists)))
             for g in np.flatnonzero(np.isfinite(dists)):
                 # the window path's rule: f64 where the window is unpruned
                 # (device.tree_dtype); pruned windows and grouped trials f32
@@ -1355,6 +1426,75 @@ class PathSpy:
                 "resets_on_card": self.resets_on_card}
 
 
+class F64Instance:
+    """Inside the block, every f64 primal launch of DeviceEnumerator (the
+    facade's and the window path's searches) runs on the f64 primal
+    instance (kernels.enum_run, extended=False) or on the extended one
+    (kernels._enum_run_extended), each timed with CUDA events around the
+    wrapper: `ms` and `root_steps` hold one entry per such launch. Other
+    forms pass through untimed (`other` counts them)."""
+
+    def __init__(self, extended: bool):
+        self.extended = extended
+
+    def __enter__(self):
+        import torch
+        from fplll_tpu_torch.enum import device, kernels
+
+        self.ms, self.root_steps, self.other = [], [], 0
+        self._saved = device.enum_run
+        run = kernels._enum_run_extended if self.extended \
+            else kernels.enum_run
+        spy = self
+
+        def enum_run(*a, **kw):
+            mut = kw["mut"] if "mut" in kw else a[0]
+            if mut.dtype != torch.float64 or kw.get("dual") or \
+                    kw.get("findsubsols"):
+                spy.other += 1
+                return spy._saved(*a, **kw)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            out = run(*a, **kw)
+            t1.record()
+            torch.cuda.synchronize()
+            spy.ms.append(t0.elapsed_time(t1))
+            spy.root_steps.append(int(out.get("root_steps", 0)))
+            return out
+
+        device.enum_run = enum_run
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.enum import device
+
+        device.enum_run = self._saved
+        return False
+
+
+def on_both_f64_instances(call, turns=(False, True, True, False)) -> dict:
+    """`call()` once per entry of `turns` (False: the f64 primal
+    instance, True: the extended one), in that order on one card: per
+    instance, each call's f64 launches and their kernel ms (CUDA events
+    around the wrapper), summed per call, and its wall; `results` holds
+    what each call returned, in turn order."""
+    import torch
+
+    out = {"f64 primal": [], "extended": [], "results": []}
+    for ext in turns:
+        with F64Instance(ext) as inst:
+            t0 = time.perf_counter()
+            res = call()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out["extended" if ext else "f64 primal"].append({
+            "launches": len(inst.ms), "kernel_ms": sum(inst.ms),
+            "wall_s": wall, "root_steps": max(inst.root_steps, default=0)})
+        out["results"].append(res)
+    return out
+
+
 def card_and_host(name, call, device, forms, **extra):
     """One call on the card and the same call host-only (backend="cpu":
     the native C core in f64 where the facade allows it); the card's must
@@ -1463,8 +1603,17 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
     nc = sum(v * v for v in lattice_point(b, xc))
     nh = sum(v * v for v in lattice_point(b, xh))
     rec.update(status=(sc, sh), norm_card=nc, norm_host=nh)
+    # the same call on both f64 instances, in turns: kernel ms and wall
+    both = on_both_f64_instances(
+        lambda: shortest_vector(b.copy(), device=device))
+    norms = [sum(v * v for v in lattice_point(b, x))
+             for _, x in both.pop("results")]
+    rec["f64_instances"] = both
     log("svp-cvp " + json.dumps(rec))
     assert sc == sh == 0 and nc == nh > 0, (sc, sh, nc, nh)
+    assert norms == [nh] * len(norms), (norms, nh)
+    assert all(r["launches"] > 0 for k in ("f64 primal", "extended")
+               for r in both[k]), both
     recs.append(rec)
 
     # CVP, both methods: a lattice vector plus a random integer offset
@@ -3091,16 +3240,34 @@ def variant_call(run, device, block=VARIANT_BLOCK):
     return "HKZ", lambda b: run_fplll(["-a", "hkz"], b), ("f64",)
 
 
+def save_windows(path: str, windows) -> None:
+    """WindowAnswers.windows into one .npz file (load_windows)."""
+    import numpy as np
+    np.savez(path, **{f"{i}_{j}": a for i, w in enumerate(windows)
+                      for j, a in enumerate(w)})
+
+
+def load_windows(path: str) -> list:
+    import numpy as np
+    with np.load(path) as z:
+        n = len({k.split("_")[0] for k in z.files})
+        return [tuple(z[f"{i}_{j}"] for j in range(5)) for i in range(n)]
+
+
 def variant_leg(run, leg, device, **sizes) -> dict:
     """One leg of one of phase 8's reductions, in this process: with the
     card at the default crossovers (no FPLLL_TPU_HYBRID_NODES in the
     environment: the facade's 2M, the C tour's 60M) or host-only, from
-    RandGen seed 12. Returns its record, with what the checks need of the
-    input and the output: a digest of the input, LLL-reducedness and
-    root-Hermite factors, the first vector's squared norm and the r_ii
-    profile (exact Gram)."""
+    RandGen seed 12. Leg "repeat" is a second card leg, whose answers are
+    not certified (HKZ's: its window lists against the first card leg's).
+    Returns its record, with what the checks need of the input and the
+    output: a digest of the input, LLL-reducedness and root-Hermite
+    factors, the first vector's squared norm and the r_ii profile (exact
+    Gram); a card leg of HKZ also writes the window lists the C tour
+    handed to the card into a file (`windows_file`, load_windows)."""
     import contextlib
     import hashlib
+    import tempfile
 
     import numpy as np
     import torch
@@ -3117,13 +3284,20 @@ def variant_leg(run, leg, device, **sizes) -> dict:
         span = [time.time()]
         t0 = time.perf_counter()
         out = call(start)
-        if leg == "card":
+        if leg != "host":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         span.append(time.time())
     print("VARIANT_REDUCED", flush=True)
+    windows_file = None
+    if run == "hkz" and leg != "host":
+        fd, windows_file = tempfile.mkstemp(prefix="chip_smoke_hkz_windows_",
+                                            suffix=".npz")
+        os.close(fd)
+        save_windows(windows_file, spy.windows)
+        print(f"VARIANT_WINDOWS {windows_file}", flush=True)
     t0 = time.perf_counter()
-    cert = spy.certify()
+    cert = spy.certify() if leg != "repeat" else {"answers": 0}
     cert["seconds"] = time.perf_counter() - t0
     _, rhf_start = gso_stats(start)
     red, rhf = gso_stats(out)
@@ -3136,14 +3310,16 @@ def variant_leg(run, leg, device, **sizes) -> dict:
                 format_matrix(start).encode()).hexdigest(),
             "lll_reduced": red, "rhf_start": rhf_start, "rhf": rhf,
             "norm_b1": sum(int(v) ** 2 for v in out.a[0]),
-            "profile": [float(x) for x in np.ldexp(r, e)]}
+            "profile": [float(x) for x in np.ldexp(r, e)],
+            "windows_file": windows_file}
 
 
 def start_variant_leg(run, leg) -> dict:
-    """One of phase 8's legs in a process of its own running this script
-    with --variant-leg, its output to a temporary file; numpy's and
-    torch's thread pools held to one thread each, as a leg is one Python
-    thread. A host-only leg runs on the CPU and does not see the card."""
+    """One of phase 8's legs (card, repeat or host) in a process of its
+    own running this script with --variant-leg, its output to a temporary
+    file; numpy's and torch's thread pools held to one thread each, as a
+    leg is one Python thread. A host-only leg runs on the CPU and does not
+    see the card."""
     import tempfile
 
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
@@ -3166,6 +3342,24 @@ def start_variant_leg(run, leg) -> dict:
 def leg_output(lg) -> str:
     with open(lg["path"]) as f:
         return f.read()
+
+
+def leg_windows_file(lg) -> str:
+    """The window-list file of an HKZ card leg, once it has written it
+    (its VARIANT_WINDOWS line, printed before the leg certifies its
+    answers)."""
+    while True:
+        text = leg_output(lg)
+        line = next((ln for ln in text.splitlines()
+                     if ln.startswith("VARIANT_WINDOWS ")), None)
+        if line is not None:
+            return line[len("VARIANT_WINDOWS "):]
+        assert lg["proc"].poll() is None, \
+            f"phase 8: the {lg['run']} {lg['leg']} leg ended without its " \
+            f"window lists\n{text[-3000:]}"
+        assert time.perf_counter() - SMOKE_T0 < VARIANT_DEADLINE_S, \
+            f"phase 8: the {lg['run']} {lg['leg']} leg did not end in time"
+        time.sleep(0.5)
 
 
 def start_card_legs(legs: list, runs) -> None:
@@ -3266,6 +3460,14 @@ def phase_variants(legs, svp_norm) -> list:
                 card["drift"]["f64"]["answers"], card["drift"]
             cert = card["f64_certificate"]
             assert cert["certified"] == cert["answers"] > 0, cert
+            repeat = recs.get(("hkz", "repeat"))
+            if repeat is not None:
+                rec["window_lists"] = compare_window_lists(
+                    load_windows(card["windows_file"]),
+                    load_windows(repeat["windows_file"]))
+                rec["window_lists"]["repeat_launches"] = repeat["launches"]
+                log("variant-hkz-windows " + json.dumps(rec["window_lists"]))
+                assert repeat["norm_b1"] == svp_norm, repeat["norm_b1"]
         else:
             r0, rc, rh = card["rhf_start"], card["rhf"], host["rhf"]
             rec["quality"] = {"rhf_start": r0, "rhf_card": rc,
@@ -3276,6 +3478,73 @@ def phase_variants(legs, svp_norm) -> list:
             assert rh < r0, (run, rh, r0)
             assert rc - rh <= 0.05 * (r0 - rh), (run, rec["quality"])
         out.append(rec)
+    return out
+
+
+def compare_window_lists(a, b) -> dict:
+    """Two HKZ legs' window lists (load_windows): their lengths, whether
+    every list (muts, rdiags, prunes, maxdists) is equal bit for bit in
+    the same order, and, where not, the first list that differs: its
+    index, window dimension in each leg and which arrays differ."""
+    import numpy as np
+    names = ("mut", "rdiag", "prune", "maxdist")
+    out = {"lists": [len(a), len(b)], "equal": True}
+    for i in range(max(len(a), len(b))):
+        wa = a[i] if i < len(a) else None
+        wb = b[i] if i < len(b) else None
+        differ = [n for n, x, y in zip(names, wa or (), wb or ())
+                  if x.shape != y.shape or not np.array_equal(x, y)] \
+            if wa is not None and wb is not None else list(names)
+        if differ:
+            out.update(equal=False, first_difference={
+                "index": i, "arrays": differ,
+                "dims": [None if w is None else int(w[1].shape[-1])
+                         for w in (wa, wb)]})
+            break
+    out["dims"] = [int(w[1].shape[-1]) for w in a]
+    return out
+
+
+def replay_hkz_windows(windows, device,
+                       turns=(False, True, True, False)) -> dict:
+    """Phase 8's HKZ card leg's window lists (load_windows), handed to
+    device_enumerate_windows again on this card, once per entry of
+    `turns` (False: the f64 primal instance, True: the extended one), in
+    that order: per turn the kernel ms of each list's f64 launches (CUDA
+    events around the wrapper) and their sum, the launches and the
+    longest work item's steps; every answer within F64_DIST_TOL of the
+    leg's own, on both instances. Independent of how many windows a run
+    sends: the same lists on both instances."""
+    import numpy as np
+    from fplll_tpu_torch.enum import device as device_mod
+
+    out = {"lists": len(windows), "f64 primal": [], "extended": []}
+    worst = 0.0
+    for ext in turns:
+        per, launches, steps = [], 0, []
+        with F64Instance(ext) as inst:
+            for muts, rdiags, prunes, maxd, leg_dists in windows:
+                n = len(inst.ms)
+                dists, _, _ = device_mod.device_enumerate_windows(
+                    muts, rdiags, prunes, maxd, device=device)
+                per.append(sum(inst.ms[n:]))
+                steps.append(max(inst.root_steps[n:], default=0))
+                launches += len(inst.ms) - n
+                dists = np.asarray(dists, dtype=np.float64)
+                assert np.array_equal(np.isfinite(dists),
+                                      np.isfinite(leg_dists)), \
+                    (dists, leg_dists)
+                fin = np.isfinite(dists)
+                if fin.any():
+                    rel = float(np.max(np.abs(dists[fin] - leg_dists[fin]) /
+                                       leg_dists[fin]))
+                    assert rel <= F64_DIST_TOL, (ext, rel)
+                    worst = max(worst, rel)
+        out["extended" if ext else "f64 primal"].append({
+            "kernel_ms_sum": sum(per), "kernel_ms_per_list": per,
+            "launches": launches, "root_steps_per_list": steps,
+            "other_forms": inst.other})
+    out["largest_rel_diff_from_leg"] = worst
     return out
 
 
@@ -3292,7 +3561,8 @@ def variant_numbers(recs) -> dict:
                         "host_wall_s": r["host"]["wall_s"],
                         "host_process_s": r["host"]["process_s"],
                         **{k: r[k] for k in ("legs_overlap_s", "quality",
-                                             "profile_max_rel_diff")
+                                             "profile_max_rel_diff",
+                                             "window_lists")
                            if k in r}}
             for r in recs}
 
@@ -3308,10 +3578,10 @@ def variant_numbers(recs) -> dict:
 BKZ_F32_PTXAS = {(32, False): 73, (32, True): 64, (64, False): 80,
                  (64, True): 80, (128, False): 101, (128, True): 100}
 def ptxas_instances(build_log: str) -> dict:
-    """Per instance of enum_chunk_kernel (f32 primal) and
-    enum_chunk_ext_kernel in nvcc's `-Xptxas -v` output: (element type, M,
-    W, SMEM, extended walk) -> (registers, stack frame, spill stores,
-    spill loads)."""
+    """Per instance of enum_chunk_kernel (f32 primal),
+    enum_chunk_f64_kernel (f64 primal) and enum_chunk_ext_kernel in nvcc's
+    `-Xptxas -v` output: (element type, M, W, SMEM, extended walk) ->
+    (registers, stack frame, spill stores, spill loads)."""
     out, key = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -3321,6 +3591,8 @@ def ptxas_instances(build_log: str) -> dict:
                          m.group(1))
             e = re.match(r"_Z\d+enum_chunk_ext_kernelI([fd])Li(\d+)ELi"
                          r"(\d+)E", m.group(1))
+            f = re.match(r"_Z\d+enum_chunk_f64_kernelILi(\d+)ELi(\d+)E",
+                         m.group(1))
             key = None
             if t is not None:
                 key = ("float", int(t.group(1)), int(t.group(2)),
@@ -3328,6 +3600,9 @@ def ptxas_instances(build_log: str) -> dict:
             if e is not None:
                 key = ("double" if e.group(1) == "d" else "float",
                        int(e.group(2)), int(e.group(3)), True, True)
+            if f is not None:
+                key = ("double", int(f.group(1)), int(f.group(2)), True,
+                       False)
             if key is not None:
                 out.setdefault(key, [None, None, None, None])
             continue
@@ -3366,14 +3641,33 @@ def ptxas_function(build_log: str, name: str) -> tuple | None:
     return tuple(out) if out[0] is not None else None
 
 
+def f64_geometries(ms=(32, 64, 128)) -> dict:
+    """Blocks per SM, grid and walkers of the launcher's persistent grid
+    for both f64 instances, the f64 primal one and the extended one, at
+    each height bucket (one problem, its shared memory)."""
+    import torch
+    from fplll_tpu_torch.enum import kernels
+
+    out = {}
+    for name, ext in (("f64 primal", False), ("extended", True)):
+        for M in ms:
+            g = kernels._geometry(M, 1, torch.float64, ext)
+            out[f"{name} M={M}"] = {k: g[k] for k in (
+                "blocks_per_sm", "grid", "walkers", "smem")}
+    return out
+
+
 def phase_build() -> dict:
     """Phase 1: build both kernels at once (one nvcc per source, started
     together), print every instance's registers, stack frame and spills,
     and assert the enumeration kernel's instance set (the six f32
-    instances of BKZ-2.0, M x SMEM, and the extended walk per element type
-    and M), that none of them spills, that the six f32 instances
-    compile to the registers of BKZ_F32_PTXAS, and that the pruner's
-    gradient kernel has no stack frame and no spills."""
+    instances of BKZ-2.0, M x SMEM, the f64 primal instance per M and the
+    extended walk per element type and M), that none of them has a stack
+    frame or spills, that the six f32 instances compile to the registers
+    of BKZ_F32_PTXAS, and that the pruner's gradient kernel has no stack
+    frame and no spills. Prints blocks per SM and walkers of both f64
+    instances at M = 32, 64 and 128, and asserts at least two blocks per
+    SM for the f64 primal instance at M = 32 and 64."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fplll_tpu_torch.enum import kernels
@@ -3415,19 +3709,36 @@ def phase_build() -> dict:
            for (M, sm), regs in BKZ_F32_PTXAS.items()}
     ext = {(t, M, 32, True, True) for t in ("float", "double")
            for M in (32, 64, 128)}
-    assert set(inst) == set(bkz) | ext, f"instances {sorted(inst)}"
+    f64 = {("double", M, 32, True, False) for M in (32, 64, 128)}
+    assert set(inst) == set(bkz) | ext | f64, f"instances {sorted(inst)}"
     assert all(v[1] == v[2] == v[3] == 0 for v in inst.values()), \
         "an instance has a stack frame or spills"
     for k, v in bkz.items():
         assert inst[k] == v, f"{k}: {inst[k]} against {v}"
+    f64_ptxas = {f"{name} M={k[1]}": inst[k] for name, keys in (
+        ("f64 primal", f64), ("extended", {("double", M, 32, True, True)
+                                           for M in (32, 64, 128)}))
+        for k in sorted(keys)}
+    geo = f64_geometries()
+    log("f64 instances: (registers, stack frame, spill stores, spill "
+        "loads) " + json.dumps(f64_ptxas) + "; persistent grid " +
+        json.dumps(geo))
+    for M in (32, 64):
+        assert geo[f"f64 primal M={M}"]["blocks_per_sm"] >= 2, geo
     return {"nvcc_s": build_s, "pruner_nvcc_s": pruner_s, "wall_s": wall,
-            "instances": len(inst), "pruner_ptxas": pruner_ptxas}
+            "instances": len(inst), "pruner_ptxas": pruner_ptxas,
+            "f64_ptxas": f64_ptxas, "f64_geometry": geo}
 
 
-def extended_entries(ext_recs, svp_recs, path_counts) -> list:
+def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
+                     replay=None) -> list:
     """The `kernels` line's entry of each form of the proved solvers: its
     phase-2 numbers (count mode, and search mode where it ran) and its
-    launches on phase 5's path and on phases 6 and 7 (`path_counts`)."""
+    launches on phase 5's path and on phases 6-8 (`path_counts`). The
+    `f64` form's entry is the f64 primal instance's, with the same trees
+    on the extended instance beside it: phase 2's d = 40 tree, phase 5's
+    proved SVP and phase 8's replayed HKZ windows (`replay`), and both
+    instances' registers and geometry from phase 1 (`build_rec`)."""
     launches = dict(path_counts)
     for r in svp_recs:
         for form, n in r["card"]["launches"].items():
@@ -3441,7 +3752,8 @@ def extended_entries(ext_recs, svp_recs, path_counts) -> list:
                                      "findsubsols" if "subsols" in form
                                      else "") if w) or "primal"
         entries.append({
-            "name": f"enum_chunk_ext_kernel<{elem}, M, 32> {form}",
+            "name": "enum_chunk_f64_kernel<M, 32>" if form == "f64" else
+            f"enum_chunk_ext_kernel<{elem}, M, 32> {form}",
             "route": "cuda",
             "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
             "replaces": f"fplll_tpu/enum/tpu.py:213 (_enum_run, {elem} "
@@ -3471,7 +3783,37 @@ def extended_entries(ext_recs, svp_recs, path_counts) -> list:
                 "longest_item_walk", "busy_share", "donations",
                 "barren_skips")},
         })
+        if form == "f64":
+            entries[-1]["f64_instances"] = f64_instance_numbers(
+                by_mode, svp_recs, build_rec, replay)
     return entries
+
+
+def f64_instance_numbers(by_mode, svp_recs, build_rec, replay) -> dict:
+    """The f64 entry's comparison of its two instances, each measured in
+    this run on this card: phase 2's d = 40 tree (kernel ms in turns per
+    mode, ns per step at a grid of one block, the latency floor), phase
+    5's proved SVP (kernel ms and wall per call), phase 8's HKZ windows
+    replayed (kernel ms summed per turn), registers and geometry."""
+    out = {}
+    for inst in ("f64 primal", "extended"):
+        c = by_mode["count"]["instances"]
+        svp = next((r["f64_instances"][inst] for r in svp_recs
+                    if "f64_instances" in r), [])
+        out[inst] = {
+            "d40_kernel_ms": {m: r["instances"]["kernel_ms"][inst]
+                              for m, r in by_mode.items()},
+            "d40_count": c[inst],
+            "proved_svp_kernel_ms": [r["kernel_ms"] for r in svp],
+            "proved_svp_wall_s": [r["wall_s"] for r in svp],
+            "hkz_replay_kernel_ms": None if replay is None else
+            [r["kernel_ms_sum"] for r in replay[inst]],
+            "ptxas_M64": None if build_rec is None else
+            build_rec["f64_ptxas"][f"{inst} M=64"],
+            "geometry": None if build_rec is None else
+            {k: v for k, v in build_rec["f64_geometry"].items()
+             if k.startswith(inst)}}
+    return out
 
 
 def mesh_numbers(rec) -> dict:
@@ -3618,7 +3960,7 @@ def main(mesh_only: bool = False, variants_only: bool = False) -> int:
         f"python {sys.version.split()[0]}")
 
     # -- phase 1: build ----------------------------------------------------
-    phase_build()
+    build_rec = phase_build()
     for name, get in (("enum_core", native.get_lib),
                       ("lll_core", native.get_lll_lib),
                       ("bkz_core", native.get_bkz_lib)):
@@ -3652,15 +3994,16 @@ def main(mesh_only: bool = False, variants_only: bool = False) -> int:
             log(json.dumps({"phase8": variant_numbers(var_recs)}))
             log(card)
             return contract_line()
-        return all_phases(device, card, legs)
+        return all_phases(device, card, legs, build_rec)
     finally:
         stop_variant_legs(legs)
 
 
-def all_phases(device, card, legs) -> int:
+def all_phases(device, card, legs, build_rec) -> int:
     """Phases 2-8 (phase 8's host-only legs already running; `legs`
     takes its card legs too, SD-BKZ's after phase 2, the others after
-    phase 7) and the last two lines."""
+    phase 7, and HKZ's repeat leg once HKZ's card leg has reduced) and
+    the last two lines."""
     from fplll_tpu_torch.enum import kernels
 
     # -- phase 2: kernel against plain version -----------------------------
@@ -3708,13 +4051,27 @@ def all_phases(device, card, legs) -> int:
     # -- phase 8: the variant reductions -------------------------------------
     t0 = time.perf_counter()
     start_card_legs(legs, ("slide", "hkz"))
-    wait_reduced(next(lg for lg in legs
-                      if (lg["run"], lg["leg"]) == ("hkz", "card")))
+    hkz_card = next(lg for lg in legs
+                    if (lg["run"], lg["leg"]) == ("hkz", "card"))
+    wait_reduced(hkz_card)
+    repeat = start_variant_leg("hkz", "repeat")
+    legs.append(repeat)
     max_err = max(max_err, grouped_plain())
+    # HKZ's windows again on both f64 instances, once the repeat leg has
+    # reduced: beside the SD-BKZ and slide card legs, whose card searches
+    # take about 1% of their walls, and off the smoke's longest path (the
+    # SD-BKZ card leg)
+    wait_reduced(repeat)
+    t1 = time.perf_counter()
+    replay = replay_hkz_windows(load_windows(leg_windows_file(hkz_card)),
+                                device)
+    log(f"hkz-replay ({time.perf_counter() - t1:.1f} s) " +
+        json.dumps(replay))
     var_recs = phase_variants(legs, svp_recs[0]["norm_host"])
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (the host-only "
         "legs ran beside phases 2-7, the SD-BKZ card leg beside phases 3-7, "
-        "phase 2's grouped plain check beside the card legs)")
+        "phase 2's grouped plain check beside the card legs and HKZ's "
+        "repeat leg, the HKZ replay beside the SD-BKZ and slide card legs)")
     variant_counts = {}
     for r in var_recs:
         for form, n in r["card"]["launches"].items():
@@ -3777,8 +4134,8 @@ def all_phases(device, card, legs) -> int:
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_item_walk", "busy_share",
             "donations", "barren_skips")},
-    }] + extended_entries(ext_recs, svp_recs, path_counts) + \
-        [pruner_entry(surf)]
+    }] + extended_entries(ext_recs, svp_recs, path_counts, build_rec,
+                          replay) + [pruner_entry(surf)]
     for e in entries:
         # the kernels' times come from phase 2, the gradient kernel's
         # from phase 6 (VARIANT_RUNS' comment)
@@ -3789,6 +4146,12 @@ def all_phases(device, card, legs) -> int:
         "; and phase 8's SD-BKZ card leg, whose card searches took "
         f"{var_recs[0]['card']['card_search_s']:.2f} s of its "
         f"{var_recs[0]['card']['wall_s']:.1f} s wall")
+    f64 = next(e for e in entries if "f64_instances" in e)
+    f64["measured_beside"] += (
+        "; its HKZ replay also beside phase 8's SD-BKZ and slide card "
+        "legs, whose card searches took "
+        f"{var_recs[0]['card']['card_search_s']:.2f} s and "
+        f"{var_recs[1]['card']['card_search_s']:.2f} s of their walls")
     log(json.dumps({"kernels": entries}))
     return contract_line()
 

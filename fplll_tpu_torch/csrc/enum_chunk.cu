@@ -17,15 +17,17 @@
  * The same body, templated on the element type, also replaces the JAX
  * package's XLA-jitted tree of the proved solvers (tpu.py:_make_step /
  * _enum_run in f64, with the dual recurrence and per-level sub-solutions):
- * enum_chunk_ext_kernel<T, M, W>, T float or double, with dual and
- * findsubsols as runtime flags. Under dual a descend subtracts alpha_k =
- * x_k - c_k instead of x_k, and an ascend restores it with the parent's
- * x and center. With findsubsols each problem keeps one record per level
- * (the passing node with the smallest nonzero partial distance, its
- * coordinates from that level up and its root), lowered under a
- * per-(problem, level) lock; level 0's candidate comes out of the absorbed
- * leaf range. The f32 primal instances of BKZ-2.0 do not compile the
- * extended walk.
+ * enum_chunk_f64_kernel<M, W>, the primal f64 walk (every unpruned or
+ * certified search: HKZ's windows, the proved SVP/CVP, unpruned
+ * FastEvaluator trees), and enum_chunk_ext_kernel<T, M, W>, T float or
+ * double, with dual and findsubsols as runtime flags. Under dual a
+ * descend subtracts alpha_k = x_k - c_k instead of x_k, and an ascend
+ * restores it with the parent's x and center. With findsubsols each
+ * problem keeps one record per level (the passing node with the smallest
+ * nonzero partial distance, its coordinates from that level up and its
+ * root), lowered under a per-(problem, level) lock; level 0's candidate
+ * comes out of the absorbed leaf range. The primal instances, f32 and
+ * f64, do not compile the extended walk.
  *
  * What it computes (the contract of the JAX package's tpu._make_step /
  * _enum_run): each walker pops a subtree root with atomicAdd
@@ -41,14 +43,14 @@
  * the queue.
  *
  * The two other parts of the TPU kernel's body:
- *   - the barren-descend lookahead (pallas_kernel.py:349-366), in the f32
- *     primal instances only, as on the TPU: a passing node above level 1
- *     computes its nearest child's center and first x (the child's own
- *     first bound test); where that fails, the node steps to its next
- *     sibling in the same iteration instead of descending, which skips
- *     the descend's subtract and the ascend's restore of the center sums
- *     below it (barren_skips counts them). The plain version's "single"
- *     and "grouped" forms do the same;
+ *   - the barren-descend lookahead (pallas_kernel.py:349-366), in the
+ *     primal instances (f32 and f64), as on the TPU: a passing node above
+ *     level 1 computes its nearest child's center and first x (the
+ *     child's own first bound test); where that fails, the node steps to
+ *     its next sibling in the same iteration instead of descending, which
+ *     skips the descend's subtract and the ascend's restore of the center
+ *     sums below it (barren_skips counts them). The plain version's
+ *     "single", "grouped" and "f64" forms do the same;
  *   - top-sibling donation (pallas_kernel.py:546-674), in every instance:
  *     once every queue has drained, an idle walker takes a ticket (the
  *     request queue) and waits in its ticket's mailbox; a busy walker that
@@ -81,9 +83,10 @@
  * guaranteed, so counts may differ from the plain version's at ULP level
  * in marginal bound tests: equal solution counts, the best distance to
  * 1e-4, total nodes to 1%, levels above 200 nodes to 2%. A launch that
- * donates nothing gives the plain version's counts exactly; so does every
- * launch on a tree whose walk is exact in f32 (tests/test_torch_donation.py:
- * every width, grid, instance and height bucket).
+ * donates nothing gives the plain version's counts exactly (the plain
+ * version skips the same descends); so does every launch on a tree whose
+ * walk is exact in f32 (tests/test_torch_donation.py: every width, grid,
+ * instance and height bucket).
  *
  * Parity rules: rounding is trunc(x +- 0.5) (the JAX package's _cround),
  * every multiply-add goes through __fmul_rn/__fadd_rn (and the build
@@ -144,6 +147,27 @@
  * picks one, to drop the branches, issues more instructions and was
  * slower. No stack frame is needed: the walker state is registers only
  * (`-Xptxas -v`, printed by chip_smoke.py phase 1).
+ *
+ * The f64 primal instance. Its time is bounded the same way: the longest
+ * work item's walk (root_steps) times the time of one step, which here is
+ * a chain of dependent f64 operations (about 4.2 ns each on an H100, by
+ * chip_smoke.py's FMA probe) against 4 cycles for f32. A chain that long
+ * is hidden only by other walkers' chains, so the design is about walkers
+ * per SM. The extended instance asks ptxas for one block per SM and
+ * compiles the dual recurrence and the sub-solution records into every
+ * tree: on an f64 primal tree, 142 registers at M = 64, one block of 8
+ * walkers per SM, 2 warps per SM sub-partition, 44% of the register file
+ * idle. This instance compiles neither (EXT = false), so the plain f64
+ * tree also gets the barren-descend lookahead, and its launch bounds ask
+ * for ENUM_F64_MIN_BLOCKS blocks per SM at M <= 64 (at most 128 registers
+ * a thread at two blocks; chip_smoke.py phase 1 asserts no stack and no
+ * spills and prints the blocks per SM the occupancy calculator gives).
+ * Two it is: 128 registers at M = 64, 16 warps per SM; three capped the
+ * instance at 80 registers with a stack frame and spills
+ * (tools/torch_f64_instance_ab.py builds and times each). Shared memory
+ * does not limit that: one f64 problem takes 9 KB at M = 32 and 34 KB at
+ * M = 64; at M = 128 it takes 134 KB, so that bucket runs one block per
+ * SM whatever the registers, and its launch bounds ask for one.
  */
 
 #include <cuda_runtime.h>
@@ -156,6 +180,10 @@
 #define ENUM_WIDTH 32      /* threads per walker */
 #endif
 #define ENUM_SMEM_MAX 232448  /* dynamic shared memory a block may hold */
+#ifndef ENUM_F64_MIN_BLOCKS
+#define ENUM_F64_MIN_BLOCKS 2 /* resident blocks per SM the f64 primal
+                                 instance asks ptxas for at M <= 64 */
+#endif
 #define ENUM_DONE (-1)        /* a mailbox's sequence word once the launch
                                  has no work left to donate */
 
@@ -213,6 +241,10 @@ struct EnumParams {
   long long max_steps;
   int G, G_real, m, nfixp, R, walkers, is_svp, count_mode;
   int dbl, dual, findsubsols;
+  int ext;               /* run the extended instance although dual and
+                            findsubsols are off (a comparison of the two f64
+                            instances; the launcher takes it wherever dual
+                            or findsubsols is set) */
 };
 
 /* launch geometry of one instance, as the launcher chooses it */
@@ -402,8 +434,9 @@ __device__ __forceinline__ void release_mailboxes(const EnumParams &P, int t,
    prune of the real problems sit in shared memory (enum_smem_bytes > 0),
    else they are read from global memory. EXT: the extended walk, with the
    dual recurrence and the sub-solution records as runtime flags (P.dual,
-   P.findsubsols); the f32 primal trees of BKZ run the instances without
-   it, and only they have the barren-descend lookahead.
+   P.findsubsols); the primal trees (f32 of BKZ, f64 of the exact
+   searches) run the instances without it, and only they have the
+   barren-descend lookahead.
 
    A walker's work items are roots popped from the queues and, once every
    queue has drained, top-level sibling ranges donated by busy walkers
@@ -810,7 +843,7 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
         } else {
           /* the child's center: the owner's cs[k-1] after a descend */
           const T cc = f_sub(cn, f_mul(wk, mkn));
-          /* the barren-descend lookahead (f32 primal): the child's step
+          /* the barren-descend lookahead (primal): the child's step
              would test its nearest integer first; where that fails the
              child's bound, step to the next sibling now, skipping the
              descend and its restore */
@@ -894,6 +927,17 @@ __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) 
   enum_chunk_walk<float, M, W, SMEM, false>(P);
 }
 
+/* the f64 primal walk (the plain f64 form), one problem in shared
+   memory (the grouped launch takes pruned f32 trials only), with the
+   barren-descend lookahead; ENUM_F64_MIN_BLOCKS blocks per SM at M <= 64,
+   one at M = 128, where shared memory allows no more (the header) */
+template <int M, int W>
+__global__ void __launch_bounds__(ENUM_THREADS,
+                                  M <= 64 ? ENUM_F64_MIN_BLOCKS : 1)
+enum_chunk_f64_kernel(EnumParams P) {
+  enum_chunk_walk<double, M, W, true, false>(P);
+}
+
 /* the extended walk, one problem in shared memory; at least one block
    per SM, so that ptxas keeps its larger state in registers (with the
    primal instances' bounds the float M = 128 instance spilled) */
@@ -905,10 +949,18 @@ enum_chunk_ext_kernel(EnumParams P) {
 
 typedef void (*EnumKernel)(EnumParams);
 
+/* whether a launch runs the extended walk: dual or sub-solutions, or a
+   caller that names the extended instance (P.ext) */
+__host__ __device__ inline int enum_wants_ext(const EnumParams &P) {
+  return P.ext || P.dual || P.findsubsols;
+}
+
 /* the instance for a launch over G_real problems of height m (nullptr if
-   none): the f32 primal instances of BKZ, or, for f64 (dbl) or the
-   extended walk (ext: dual or sub-solutions), the extended instance of
-   the element type, for one problem held in shared memory */
+   none): the f32 primal instances of BKZ; for f64 (dbl) without the
+   extended walk, the f64 primal instance; for the extended walk (ext:
+   dual, sub-solutions, or asked for by name), the extended instance of
+   the element type. The f64 and extended instances hold one problem in
+   shared memory. */
 static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
 #define ENUM_INSTANCES(MM) \
   {enum_chunk_kernel<MM, ENUM_WIDTH, false>, \
@@ -916,6 +968,10 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
   static const EnumKernel table[3][2] = {
       ENUM_INSTANCES(32), ENUM_INSTANCES(64), ENUM_INSTANCES(128)};
 #undef ENUM_INSTANCES
+  static const EnumKernel f64_table[3] = {
+      enum_chunk_f64_kernel<32, ENUM_WIDTH>,
+      enum_chunk_f64_kernel<64, ENUM_WIDTH>,
+      enum_chunk_f64_kernel<128, ENUM_WIDTH>};
 #define ENUM_EXT_INSTANCES(TT) \
   {enum_chunk_ext_kernel<TT, 32, ENUM_WIDTH>, \
    enum_chunk_ext_kernel<TT, 64, ENUM_WIDTH>, \
@@ -927,7 +983,7 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
   if (m < 2 || m > ENUM_MAXM || G_real < 1) return nullptr;
   if (dbl || ext) {
     if (G_real != 1 || enum_smem_bytes(m, 1, dbl ? 8 : 4) == 0) return nullptr;
-    return ext_table[dbl ? 1 : 0][b];
+    return dbl && !ext ? f64_table[b] : ext_table[dbl ? 1 : 0][b];
   }
   return table[b][enum_smem_bytes(m, G_real) > 0];
 }
@@ -939,8 +995,8 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
 static int enum_bucket(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : 128; }
 
 /* The geometry of a launch over problems of height m with G_real real
-   problems, of element type double (dbl) or float, on the extended walk
-   (ext) or not: grid 0 means blocks per SM (from the occupancy of the
+   problems, of element type double (dbl) or float, on the extended
+   instance (ext) or not: grid 0 means blocks per SM (from the occupancy of the
    instance with its dynamic shared memory) times the SMs of the current
    device. */
 extern "C" int enum_chunk_geometry(int m, int G_real, int dbl, int ext,
@@ -975,7 +1031,7 @@ extern "C" int enum_chunk_launch(const EnumParams *hp, int grid,
   EnumParams P = *hp;
   if (P.G < 1 || P.G_real < 1 || P.G_real > P.G || P.R < 1 || P.nfixp < 0)
     return (int)cudaErrorInvalidValue;
-  const int ext = P.dual || P.findsubsols;
+  const int ext = enum_wants_ext(P);
   EnumGeometry geo;
   const int e = enum_chunk_geometry(P.m, P.G_real, P.dbl, ext, grid, &geo);
   if (e != 0) return e;

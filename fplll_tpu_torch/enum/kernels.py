@@ -21,8 +21,8 @@ tensors it runs the plain PyTorch version, a vectorized port of the
 lockstep step of `tpu._make_step`/`_enum_run` (SVP/CVP, count and search
 mode; enum_run also in f64, with the dual recurrence and with per-level
 sub-solutions), with the Pallas kernel's barren-descend lookahead in its
-f32 primal forms as in the kernel's. Nothing on the card's path calls the
-plain version.
+primal forms ("single", "grouped", "f64") as in the kernel's primal
+instances. Nothing on the card's path calls the plain version.
 
 Once the root queues have drained, the kernel's idle walkers take the
 top-level sibling ranges of busy ones (the Pallas kernel's top-sibling
@@ -40,9 +40,17 @@ sizes the root queue (DeviceEnumerator's target_root_factor x batch) and
 is the plain version's lane count. The per-walker outputs hold one slot
 per (problem, walker), sized from the geometry the launcher reports.
 
+Instances: "single" and "grouped" launch ``enum_chunk_kernel`` (f32
+primal), "f64" ``enum_chunk_f64_kernel`` (f64 primal), the dual and
+sub-solution forms ``enum_chunk_ext_kernel`` of their element type.
+:func:`_enum_run_extended` runs an f64 primal tree on the extended
+instance instead, for the comparison of the two f64 instances; no path of
+the port calls it.
+
 Counts: ``LAUNCHES`` counts kernel launches per form (``FORMS``) and
 nothing else, ``PLAIN_RUNS`` the wrappers' runs of the plain version,
-``GRIDS`` the launch geometries (grid, blocks per SM, SMs) per form; node
+``GRIDS`` the launch geometries (grid, blocks per SM, SMs) per form,
+``EXTENDED_F64`` the comparison's launches and plain runs; node
 counters are int64 (uint64 in the kernel), never f32.
 """
 
@@ -72,6 +80,9 @@ LAUNCHES: Dict[str, int] = {form: 0 for form in FORMS}
 PLAIN_RUNS: Dict[str, int] = {form: 0 for form in FORMS}
 # (grid, blocks per SM, SMs) of each launch geometry used, per form
 GRIDS: Dict[str, Set[Tuple[int, int, int]]] = {form: set() for form in FORMS}
+# f64 primal trees on the extended instance (_enum_run_extended): its
+# launches, and runs of its plain version (the walk without the lookahead)
+EXTENDED_F64: Dict[str, int] = {"launches": 0, "plain_runs": 0}
 
 
 def _form(dtype, dual: bool, findsubsols: bool) -> str:
@@ -87,6 +98,8 @@ def reset_launch_counts() -> None:
         LAUNCHES[key] = 0
         PLAIN_RUNS[key] = 0
         GRIDS[key].clear()
+    for key in EXTENDED_F64:
+        EXTENDED_F64[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -104,7 +117,7 @@ class _EnumParams(ctypes.Structure):
         [("max_steps", ctypes.c_longlong)] + \
         [(name, ctypes.c_int) for name in (
             "G", "G_real", "m", "nfixp", "R", "walkers", "is_svp",
-            "count_mode", "dbl", "dual", "findsubsols")]
+            "count_mode", "dbl", "dual", "findsubsols", "ext")]
 
 
 class _EnumGeometry(ctypes.Structure):
@@ -129,6 +142,13 @@ def build_kernel() -> ctypes.CDLL:
     if _LIB is not None:
         return _LIB
     lib, BUILD_LOG = cuda_build.build("enum_chunk")
+    _LIB = _bind(lib)
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """The C entry points' argument and result types on a build of
+    csrc/enum_chunk.cu."""
     lib.enum_chunk_geometry.restype = ctypes.c_int
     lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(_EnumGeometry)]
@@ -137,7 +157,6 @@ def build_kernel() -> ctypes.CDLL:
                                       ctypes.c_int, ctypes.c_void_p]
     lib.enum_chunk_error_string.restype = ctypes.c_char_p
     lib.enum_chunk_error_string.argtypes = [ctypes.c_int]
-    _LIB = lib
     return lib
 
 
@@ -152,13 +171,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
              *, G_real: int, walkers: int, is_svp: bool, count_mode: bool,
              max_steps: int, roots_a=None, dual: bool = False,
-             findsubsols: bool = False, m_real_range=None):
+             findsubsols: bool = False, m_real_range=None,
+             ext: bool = False):
     """Check the stacked inputs of G problems (float32 or float64, all
     alike), allocate the outputs (one slot per problem and walker, and
     the per-level sub-solution records) on their device and fill the
     kernel's parameter struct. `m_real_range` (least, largest m_real),
     when the caller knows it, spares the read of m_real from the
-    device."""
+    device. `ext` runs the extended instance with dual and findsubsols
+    as given (both off: an f64 primal tree on the extended instance)."""
     G, m, _ = mut.shape
     R, nfixp = roots_x.shape[1], roots_x.shape[2]
     dev, ft = mut.device, mut.dtype
@@ -234,6 +255,7 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
     p.is_svp, p.count_mode = int(is_svp), int(count_mode)
     p.dbl = int(ft == torch.float64)
     p.dual, p.findsubsols = int(dual), int(findsubsols)
+    p.ext = int(ext)
     return p, out
 
 
@@ -243,24 +265,32 @@ def _raise(lib, rc: int, what: str) -> None:
                            lib.enum_chunk_error_string(rc).decode())
 
 
-def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
-    """One launch over G stacked problems on the current CUDA stream. The
-    launcher reports the geometry for (m, G_real, element type, walk,
-    grid): grid 0 asks for
-    blocks per SM times SMs (the persistent grid); it also gives threads
-    per block, the walker width W, the height bucket M, blocks per SM,
-    SMs, dynamic shared memory and walkers (grid * threads / W), which
-    size the outputs. Returns the raw
-    per-walker and per-problem outputs (on the card) and the geometry."""
-    dev = args[0].device
+def _geometry(m: int, G_real: int, dtype, ext: bool, grid: int = 0) -> dict:
+    """The launcher's geometry for (m, G_real, element type, instance,
+    grid) on the current CUDA device: grid 0 asks for blocks per SM times
+    SMs (the persistent grid); it also gives threads per block, the
+    walker width W, the height bucket M, blocks per SM, SMs, dynamic
+    shared memory and walkers (grid * threads / W). `ext`: the extended
+    instance (dual or sub-solutions, or asked for by name)."""
     lib = build_kernel()
     g = _EnumGeometry()
+    _raise(lib, lib.enum_chunk_geometry(
+        m, G_real, int(dtype == torch.float64), int(ext), grid,
+        ctypes.byref(g)), "geometry")
+    return {name: getattr(g, name) for name, _ in _EnumGeometry._fields_}
+
+
+def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
+    """One launch over G stacked problems on the current CUDA stream, at
+    the launcher's geometry (_geometry), whose walkers size the outputs.
+    Returns the raw per-walker and per-problem outputs (on the card) and
+    the geometry."""
+    dev = args[0].device
+    lib = build_kernel()
     with torch.cuda.device(dev):
-        ext = kw.get("dual", False) or kw.get("findsubsols", False)
-        _raise(lib, lib.enum_chunk_geometry(
-            args[0].shape[-1], G_real, int(args[0].dtype == torch.float64),
-            int(ext), grid, ctypes.byref(g)), "geometry")
-        geo = {name: getattr(g, name) for name, _ in _EnumGeometry._fields_}
+        ext = kw.get("ext", False) or kw.get("dual", False) or \
+            kw.get("findsubsols", False)
+        geo = _geometry(args[0].shape[-1], G_real, args[0].dtype, ext, grid)
         p, out = _prepare(*args, G_real=G_real, walkers=geo["walkers"], **kw)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise(lib, lib.enum_chunk_launch(ctypes.byref(p), geo["grid"],
@@ -391,15 +421,49 @@ def enum_launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
     caller can launch on several streams or cards before it waits for
     any; on CPU tensors it runs the plain version. Pass what it returns
     to :func:`enum_collect` under the same device and stream."""
+    return _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
+                   m=m, is_svp=is_svp, count_mode=count_mode,
+                   max_steps=max_steps, batch=batch, m_real=m_real, grid=grid,
+                   roots_a=roots_a, dual=dual, findsubsols=findsubsols,
+                   ext=False)
+
+
+def _enum_run_extended(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
+                       A0: float, *, dual: bool = False,
+                       findsubsols: bool = False, **kw) -> dict:
+    """:func:`enum_run` of an f64 primal tree on the extended instance
+    (enum_chunk_ext_kernel<double> with dual and findsubsols off: no
+    lookahead, one block per SM at M = 64); on CPU tensors, the plain
+    walk without the lookahead. For the comparison of the two f64
+    instances (chip_smoke.py, the tests); no path of the port calls it,
+    and it counts in EXTENDED_F64, not in LAUNCHES."""
+    if mut.dtype != torch.float64 or dual or findsubsols:
+        raise ValueError("_enum_run_extended: f64 primal trees only")
+    kw = dict(dict(max_steps=1 << 30, batch=1024, m_real=None, grid=0,
+                   roots_a=None), **kw)
+    return enum_collect(_launch(mut, rdiag, prune, mut_fix, cp0, roots_x,
+                                roots_pd, A0, dual=False, findsubsols=False,
+                                ext=True, **kw))
+
+
+def _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
+            *, m: int, is_svp: bool, count_mode: bool, max_steps: int,
+            batch: int, m_real: Optional[int], grid: int, roots_a,
+            dual: bool, findsubsols: bool, ext: bool) -> dict:
+    """enum_launch on the instance of its form, or on the extended
+    instance (`ext`, counted in EXTENDED_F64)."""
     dev = mut.device
     form = _form(mut.dtype, dual, findsubsols)
     if dev.type == "cpu":
-        PLAIN_RUNS[form] += 1
+        if ext:
+            EXTENDED_F64["plain_runs"] += 1
+        else:
+            PLAIN_RUNS[form] += 1
         return {"result": enum_run_plain(
             mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m=m,
             is_svp=is_svp, count_mode=count_mode, max_steps=max_steps,
             batch=batch, roots_a=roots_a, dual=dual,
-            findsubsols=findsubsols)}
+            findsubsols=findsubsols, extended=ext)}
     if dev.type != "cuda":
         raise ValueError(f"enum_run: unsupported device {dev}")
     mr = m if m_real is None else int(m_real)
@@ -411,10 +475,13 @@ def enum_launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
         G_real=1, grid=grid, is_svp=is_svp,
         count_mode=count_mode, max_steps=max_steps,
         roots_a=None if roots_a is None else roots_a[None], dual=dual,
-        findsubsols=findsubsols, m_real_range=(mr, mr))
-    LAUNCHES[form] += 1
-    geo = out["geometry"]
-    GRIDS[form].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
+        findsubsols=findsubsols, m_real_range=(mr, mr), ext=ext)
+    if ext:
+        EXTENDED_F64["launches"] += 1
+    else:
+        LAUNCHES[form] += 1
+        geo = out["geometry"]
+        GRIDS[form].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
     return {"raw": out, "roots_x": roots_x, "A0": A0,
             "count_mode": count_mode, "max_steps": max_steps}
 
@@ -484,7 +551,8 @@ def _cround(x: torch.Tensor) -> torch.Tensor:
 def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                     *, m: int, is_svp: bool, count_mode: bool,
                     max_steps: int, batch: int, roots_a=None,
-                    dual: bool = False, findsubsols: bool = False) -> dict:
+                    dual: bool = False, findsubsols: bool = False,
+                    extended: bool = False) -> dict:
     """Lockstep DFS over B lanes with a root work queue: the port of
     `tpu._make_step`/`_enum_run`, in the dtype of the inputs (float32 or
     float64). Per step every active lane does one bound test; passing
@@ -495,8 +563,10 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     fresh root feeds the center sums (alpha for dual; None: roots_x);
     `roots_x` are the reported coordinates. `findsubsols` also returns
     the per-level best partials: subsol_dist (m,), subsol_vec (m, m) and
-    subsol_root (m, nfix). The f32 primal form skips barren descends
-    (barren_skips: how many)."""
+    subsol_root (m, nfix). The primal forms ("single", "f64") skip barren
+    descends (barren_skips: how many), as the kernel's primal instances
+    do; `extended` walks an f64 primal tree without the lookahead, as
+    the extended instance does."""
     dev, ft = mut.device, mut.dtype
     B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
     if R == 0:
@@ -559,14 +629,14 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     check_every = 1 if dev.type == "cpu" else 32
     steps = 0
     barren_skips = torch.zeros((), dtype=torch.int64, device=dev)
-    # the f32 primal trees (the "single" and "grouped" forms) run the
-    # Pallas kernel's barren-descend lookahead, as the CUDA kernel's f32
+    # the primal trees (the "single", "grouped" and "f64" forms) run the
+    # Pallas kernel's barren-descend lookahead, as the CUDA kernel's
     # primal instances do. A barren node's sibling step takes the next
     # lockstep step, the one its failing child's test would have taken,
     # so that the steps at which a search's bound falls stay those of the
     # walk without it (tpu._enum_run's): a lane marked `pending` tests
     # nothing in that step, it only moves to the sibling
-    lookahead = _form(ft, dual, findsubsols) == "single"
+    lookahead = not extended and not dual and not findsubsols
     pending = torch.zeros(B, dtype=torch.bool, device=dev)
 
     while steps < max_steps:

@@ -212,10 +212,11 @@ def dyadic_tree(d, seed):
                          ids=["single", "f64"])
 def test_dyadic_tree_counts_exact_with_donation(card, dtype):
     """The whole dyadic d = 28 tree under one root, spread over the
-    card's walkers by donation (and, in f32, with the lookahead): every
-    round trip is exact, so per-level nodes and solutions equal the plain
-    version's on the root queue plus the host expansion's exactly, at the
-    persistent grid and at one block."""
+    card's walkers by donation, with the lookahead of both primal
+    instances (f32 and f64): every round trip is exact, so per-level
+    nodes and solutions equal the plain version's on the root queue plus
+    the host expansion's exactly, at the persistent grid and at one
+    block."""
     d = 28
     mut, rdiag, prune, A = dyadic_tree(d, 1)
     enum = DeviceEnumerator(batch=1024, target_root_factor=1, device=card,
@@ -236,7 +237,7 @@ def test_dyadic_tree_counts_exact_with_donation(card, dtype):
         assert int(k["donations"]) > 0
         np.testing.assert_array_equal(k["nodes"].cpu().numpy()[:d], full)
         assert int(k["sol_count"]) == int(p["sol_count"]) > 0
-        assert (int(k["barren_skips"]) > 0) == (dtype == torch.float32)
+        assert int(k["barren_skips"]) > 0
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(card):
@@ -313,6 +314,37 @@ def test_extended_instances_match_plain(card, dtype, dual, findsubsols):
                     p["subsol_dist"].cpu().numpy()[:mr],
                     rtol=0 if int(r["donations"]) == 0 else
                     (1e-12 if dtype == torch.float64 else 1e-6))
+
+
+def test_f64_tree_on_both_f64_instances(card):
+    """The d = 30 f64 primal tree on the f64 primal instance (enum_run)
+    and on the extended one (kernels._enum_run_extended): each against
+    the plain version, count mode to the Pallas tolerance where it
+    donated, both searches' best distance the plain version's to 1e-12;
+    only the primal instance skips barren descends; the primal instance
+    runs at least two blocks per SM at M = 32, and no fewer walkers than
+    the extended one."""
+    pack = ext_packed(30, 1, torch.float64, False, card)
+    mr = pack["m_real"]
+    plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+    before = (kernels.LAUNCHES["f64"], kernels.EXTENDED_F64["launches"])
+    for count_mode in (True, False):
+        kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
+                  max_steps=1 << 30)
+        p = kernels.enum_run_plain(**plain_args, **kw)
+        new = kernels.enum_run(**pack, **kw)
+        old = kernels._enum_run_extended(**pack, **kw)
+        for r in (new, old):
+            b = float(p["best_dist"][0])
+            assert abs(float(r["best_dist"][0]) - b) <= 1e-12 * b
+            if count_mode:
+                assert_counts(r, p["nodes"].cpu().numpy(), p["sol_count"],
+                              mr)
+        assert int(new["barren_skips"]) > 0 == int(old["barren_skips"])
+    assert (kernels.LAUNCHES["f64"], kernels.EXTENDED_F64["launches"]) == \
+        (before[0] + 2, before[1] + 2)
+    assert new["geometry"]["blocks_per_sm"] >= 2
+    assert new["geometry"]["walkers"] >= old["geometry"]["walkers"]
 
 
 @pytest.mark.parametrize("d", [10, 20, 30])

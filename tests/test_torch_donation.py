@@ -2,10 +2,11 @@
 
 `csrc/enum_chunk.cu` hands the sibling ranges of a busy walker's top
 level to idle walkers once the root queues have drained (the Pallas
-kernel's top-sibling donation), and its f32 primal instances skip a
-descend whose nearest child already fails (the barren-descend
-lookahead); the plain version's "single" and "grouped" forms run the same
-lookahead. An adoptee re-derives the center sums below the donated level
+kernel's top-sibling donation), and its primal instances (f32 and f64)
+skip a descend whose nearest child already fails (the barren-descend
+lookahead); the plain version's "single", "grouped" and "f64" forms run
+the same lookahead. The extended instance, which an f64 primal tree can
+still be sent to by name (`kernels._enum_run_extended`), has none. An adoptee re-derives the center sums below the donated level
 from its root, and a skipped descend skips an f32 subtract/restore round
 trip, so on realistic trees counts may move at ULP level (the tolerance
 of tests/test_pallas_parity.py). On the dyadic trees here every sum and
@@ -104,9 +105,10 @@ def tensors(prob, dtype):
 
 
 def run_plain(prob, dtype, *, dual=False, findsubsols=False,
-              count_mode=True):
+              count_mode=True, ext=False):
     t = tensors(prob, dtype)
-    return kernels.enum_run(
+    run = kernels._enum_run_extended if ext else kernels.enum_run
+    return run(
         t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
         t["rpd"], prob["A"], m=prob["m"], is_svp=True, count_mode=count_mode,
         max_steps=1 << 26, batch=128, roots_a=t["ra"], dual=dual,
@@ -124,9 +126,10 @@ def run_jax(prob, dtype, *, dual=False, findsubsols=False, count_mode=True):
 
 def run_host(lib, prob, dtype, *, grid, dual=False, findsubsols=False,
              count_mode=True, G=1, G_real=1, max_steps=1 << 40,
-             threads=EMU_THREADS):
+             threads=EMU_THREADS, ext=False):
     """One emulated launch over G copies of the problem (the first G_real
-    real, the rest padding with bound 0); returns the raw outputs."""
+    real, the rest padding with bound 0), on the extended instance where
+    `ext` names it; returns the raw outputs."""
     t = {k: v[None].expand(G, *v.shape).contiguous()
          for k, v in tensors(prob, dtype).items()}
     a0 = torch.tensor([prob["A"]] * G_real + [0.0] * (G - G_real),
@@ -137,7 +140,7 @@ def run_host(lib, prob, dtype, *, grid, dual=False, findsubsols=False,
         t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
         t["rpd"], a0, mr, G_real=G_real, walkers=walkers, is_svp=True,
         count_mode=count_mode, max_steps=max_steps, roots_a=t["ra"],
-        dual=dual, findsubsols=findsubsols)
+        dual=dual, findsubsols=findsubsols, ext=ext)
     assert lib.enum_chunk_emulate(ctypes.byref(p), grid, threads) == 0
     out["walkers"] = walkers
     return out
@@ -154,12 +157,20 @@ def tree_problem(d, seed, pruned=False, dual=False, radius=1.0, **kw):
     return _TREES[key]
 
 
-# (form, element type, dual, sub-solutions): every instance of the kernel
-INSTANCES = [("single", F32, False, False), ("f64", F64, False, False),
-             ("f32-dual", F32, True, False), ("f64-dual", F64, True, False),
-             ("f32-subsols", F32, False, True),
-             ("f64-subsols", F64, False, True)]
+# (name, element type, dual, sub-solutions, extended instance by name):
+# every instance of the kernel, each form on the instance it launches, and
+# the f64 primal tree also on the extended instance ("f64-extended",
+# named through EnumParams.ext); the primal instances ("single", "f64")
+# have the lookahead
+INSTANCES = [("single", F32, False, False, False),
+             ("f64", F64, False, False, False),
+             ("f64-extended", F64, False, False, True),
+             ("f32-dual", F32, True, False, False),
+             ("f64-dual", F64, True, False, False),
+             ("f32-subsols", F32, False, True, False),
+             ("f64-subsols", F64, False, True, False)]
 IDS = [i[0] for i in INSTANCES]
+PRIMAL_INSTANCES = ("single", "f64")
 # (d, seed, pruned, radius): the primal trees, about 1e4 nodes each; the
 # dual recurrence runs on the d = 20 tree of its own mu
 PRIMAL, DUAL = (24, 1, False, 1.0), (20, 1, False, 1.0)
@@ -186,31 +197,37 @@ def full_counts(dual, dtype):
                                   (20, 1, False, 1.25)])
 def test_dyadic_trees_are_exact_in_f32(tree):
     """The premise of the exact tests: the plain version counts the same
-    per-level nodes and solutions in f32 (with the lookahead, which skips
-    barren descends here) and in f64 (without it), and so does the dual
-    recurrence on its tree."""
+    per-level nodes and solutions in f32 and in f64, both with the
+    lookahead (which skips barren descends here), and in f64 without it
+    (the extended instance's walk), and so does the dual recurrence on
+    its tree, which has no lookahead."""
     for dual, prob in ((False, tree_problem(*tree[:3], False, tree[3])),
                        (True, instance_tree(True))):
         a, b = run_plain(prob, F32, dual=dual), run_plain(prob, F64, dual=dual)
-        np.testing.assert_array_equal(a["nodes"].numpy(), b["nodes"].numpy())
-        assert int(a["sol_count"]) == int(b["sol_count"])
-        assert b["barren_skips"] == 0
-        assert (a["barren_skips"] > 0) == (not dual)
+        runs = [a, b] + ([] if dual else [run_plain(prob, F64, ext=True)])
+        for r in runs[1:]:
+            np.testing.assert_array_equal(a["nodes"].numpy(),
+                                          r["nodes"].numpy())
+            assert int(a["sol_count"]) == int(r["sol_count"])
+        assert [r["barren_skips"] > 0 for r in runs] == \
+            ([False, False] if dual else [True, True, False])
 
 
-@pytest.mark.parametrize("form,dtype,dual,subsols", INSTANCES, ids=IDS)
-def test_plain_matches_jax_on_dyadic_trees(form, dtype, dual, subsols):
-    """Every form of the plain version against tpu._enum_run (whose XLA
-    walk has no lookahead) on the dyadic trees, count and search mode:
-    per-level nodes, solution count, best distance and sub-solution
-    distances exactly equal (a barren node's sibling step takes the
-    lockstep step of its failing child, so a search's bound falls at the
-    same steps)."""
+@pytest.mark.parametrize("name,dtype,dual,subsols,ext", INSTANCES, ids=IDS)
+def test_plain_matches_jax_on_dyadic_trees(name, dtype, dual, subsols, ext):
+    """Every form of the plain version, and the f64 primal walk without
+    the lookahead, against tpu._enum_run (whose XLA walk has no
+    lookahead) on the dyadic trees, count and search mode: per-level
+    nodes, solution count, best distance and sub-solution distances
+    exactly equal (a barren node's sibling step takes the lockstep step
+    of its failing child, so a search's bound falls at the same steps)."""
     prob = instance_tree(dual)
-    assert kernels._form(dtype, dual, subsols) == form
+    assert kernels._form(dtype, dual, subsols) == name.replace("-extended",
+                                                               "")
     for count_mode in (True, False):
         kw = dict(dual=dual, findsubsols=subsols, count_mode=count_mode)
-        pt, jx = run_plain(prob, dtype, **kw), run_jax(prob, dtype, **kw)
+        pt = run_plain(prob, dtype, ext=ext, **kw)
+        jx = run_jax(prob, dtype, **kw)
         assert float(pt["best_dist"][0]) == float(jx["best_dist"].min())
         np.testing.assert_array_equal(pt["nodes"].numpy(),
                                       jx["nodes"].astype(np.int64))
@@ -220,26 +237,27 @@ def test_plain_matches_jax_on_dyadic_trees(form, dtype, dual, subsols):
             mr = prob["m_real"]
             np.testing.assert_array_equal(pt["subsol_dist"].numpy()[:mr],
                                           jx["subsol_dist"][:mr])
-        assert (pt["barren_skips"] > 0) == (form == "single")
+        assert (pt["barren_skips"] > 0) == (name in PRIMAL_INSTANCES)
 
 
 @pytest.mark.parametrize("single_root", [False, True],
                          ids=["queue", "one-root"])
 @pytest.mark.parametrize("grid", [1, 3])
 @pytest.mark.parametrize("width", WIDTHS)
-@pytest.mark.parametrize("form,dtype,dual,subsols", INSTANCES, ids=IDS)
-def test_host_kernel_exact_on_dyadic_trees(host_build, form, dtype, dual,
-                                           subsols, width, grid,
+@pytest.mark.parametrize("name,dtype,dual,subsols,ext", INSTANCES, ids=IDS)
+def test_host_kernel_exact_on_dyadic_trees(host_build, name, dtype, dual,
+                                           subsols, ext, width, grid,
                                            single_root):
     """Count mode, every instance at every walker width and grid, the
     root queue and one root over the whole tree (where every walker but
     the first gets its work by donation): per-level nodes and solutions
     exactly the plain version's (and so tpu._enum_run's), and the
-    sub-solution distances too on the queue form; the f32 primal
-    instances skip barren descends, the others have no lookahead."""
+    sub-solution distances too on the queue form; the primal instances
+    (f32 and f64) skip barren descends, the extended instance has no
+    lookahead."""
     prob = instance_tree(dual, single_root=single_root)
     out = run_host(host_build(width), prob, dtype, grid=grid, dual=dual,
-                   findsubsols=subsols)
+                   findsubsols=subsols, ext=ext)
     assert int(out["aborted"]) == 0
     nodes, sols = full_counts(dual, dtype)
     mr = prob["m_real"]
@@ -251,20 +269,20 @@ def test_host_kernel_exact_on_dyadic_trees(host_build, form, dtype, dual,
         ref = run_plain(prob, dtype, dual=dual, findsubsols=True)
         np.testing.assert_array_equal(out["ss_dist"].numpy()[0, :mr],
                                       ref["subsol_dist"].numpy()[:mr])
-    assert (int(out["barren_skips"]) > 0) == (form == "single")
+    assert (int(out["barren_skips"]) > 0) == (name in PRIMAL_INSTANCES)
     assert int(out["walk_steps"]) >= int(out["steps"]) >= \
         int(out["root_steps"]) > 0
 
 
-@pytest.mark.parametrize("form,dtype,dual,subsols", INSTANCES, ids=IDS)
+@pytest.mark.parametrize("name,dtype,dual,subsols,ext", INSTANCES, ids=IDS)
 def test_host_kernel_exact_on_dyadic_trees_in_a_taller_bucket(
-        host_build, form, dtype, dual, subsols):
+        host_build, name, dtype, dual, subsols, ext):
     """The one-root trees padded to the M = 64 bucket (levels above
     m_real are padding, which neither the walk nor a donation enters):
     the counts of the M = 32 runs."""
     prob = instance_tree(dual, single_root=True, m=64)
     out = run_host(host_build(16), prob, dtype, grid=2, dual=dual,
-                   findsubsols=subsols)
+                   findsubsols=subsols, ext=ext)
     nodes, sols = full_counts(dual, dtype)
     mr = prob["m_real"]
     np.testing.assert_array_equal(out["nodes"].numpy()[0, :mr], nodes[:mr])

@@ -8,8 +8,13 @@ XLA kernel `tpu._enum_run` in the same dtype: per-level node counts and
 solution counts exactly equal, best distances bit-equal, the sub-solution
 records equal per level. Both walk the same lockstep steps in the same
 arithmetic, and both expand the roots with the same C code
-(jax_reference.py). The CUDA source's new instances are compiled for the
-host and held against the plain version; `DeviceEnumerator` against
+(jax_reference.py). The plain f64 primal form walks with the
+barren-descend lookahead, as the f32 primal form does and the CUDA
+kernel's primal instances do; tpu._enum_run has none, and its counts are
+matched step for step (a barren node's sibling step takes the lockstep
+step of its failing child). The CUDA source's f64 primal and extended
+instances are compiled for the host and held against the plain version;
+`DeviceEnumerator` against
 `TPUEnumerator`, including the deep-tree search for trees taller than the
 kernel; and the plain f64 tree against the JAX package's TPU stand-in for
 f64 (compensated f32 pairs, `dd_kernel._enum_run_dd`).
@@ -32,7 +37,8 @@ from fplll_tpu_torch.enum.evaluator import FastEvaluator
 from fplll_tpu_torch.native import native_enumerate
 from jax_reference import jax_native_cores  # noqa: F401 (autouse)
 from test_pallas_parity import build, linear_pruning
-from test_torch_enum_kernel import EMU_THREADS, host_build  # noqa: F401
+from test_torch_enum_kernel import (EMU_THREADS, WIDTHS,  # noqa: F401
+                                    host_build)
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
 torch.set_num_threads(2)
@@ -128,9 +134,12 @@ def port_tensors(prob, dtype):
     return {k: torch.as_tensor(P[k], dtype=dtype) for k in KEYS}, A0
 
 
-def run_plain(prob, dtype, *, dual, findsubsols, count_mode):
+def run_plain(prob, dtype, *, dual, findsubsols, count_mode, ext=False):
+    """The plain version of the form, or (`ext`) of the extended
+    instance's f64 primal walk, without the lookahead."""
     t, A0 = port_tensors(prob, dtype)
-    return kernels.enum_run(
+    run = kernels._enum_run_extended if ext else kernels.enum_run
+    return run(
         t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
         t["rpd"], A0, m=prob["m"], is_svp=True, count_mode=count_mode,
         max_steps=1 << 24, batch=128, roots_a=t["ra"], dual=dual,
@@ -205,7 +214,12 @@ def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
     solution counts, bit-equal best distances, and in count mode the
     sub-solution records equal per level to RECORD_RTOL (their vectors
     may differ on ties), each valid to 1e-12 relative in f64 (1e-5 in
-    f32)."""
+    f32). The primal forms (f32 "single", "f64") skip barren descends
+    here, where tpu._enum_run descends and restores; on both cases, in
+    both dtypes, no skipped subtract/restore round trip moves a bound
+    test, so their counts are exact too, not only within the Pallas
+    tolerance (tests/test_pallas_parity.py:164-175) that such a round
+    trip could need."""
     prob = cached_problem(*PROBLEMS[case], dual)
     form = kernels._form(dtype, dual, findsubsols)
     runs = kernels.PLAIN_RUNS[form]
@@ -219,6 +233,7 @@ def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
         assert float(pt["best_dist"][0]) == float(jx["best_dist"].min())
         if count_mode and not PROBLEMS[case][1]:
             assert int(pt["sol_count"]) > 0
+        assert (pt["barren_skips"] > 0) == (not dual and not findsubsols)
         if findsubsols:
             mr = prob["m_real"]
             if count_mode:
@@ -260,7 +275,8 @@ def test_wrapper_rejects_mixed_dtypes():
 # ---------------------------------------------------------------------------
 # the new instances of the CUDA source, compiled for the host
 # ---------------------------------------------------------------------------
-def run_host(lib, prob, dtype, *, dual, findsubsols, count_mode, grid):
+def run_host(lib, prob, dtype, *, dual, findsubsols, count_mode, grid,
+             ext=False):
     t, A0 = port_tensors(prob, dtype)
     t = {k: v[None].contiguous() for k, v in t.items()}
     a0 = torch.full((1,), A0, dtype=dtype)
@@ -270,16 +286,16 @@ def run_host(lib, prob, dtype, *, dual, findsubsols, count_mode, grid):
         t["mut"], t["rdiag"], t["prune"], t["mut_fix"], t["cp0"], t["rx"],
         t["rpd"], a0, mr, G_real=1, walkers=walkers, is_svp=True,
         count_mode=count_mode, max_steps=1 << 40, roots_a=t["ra"],
-        dual=dual, findsubsols=findsubsols)
+        dual=dual, findsubsols=findsubsols, ext=ext)
     assert lib.enum_chunk_emulate(ctypes.byref(p), grid, EMU_THREADS) == 0
     return kernels._finalize_single(out, t["rx"][0], A0,
                                     count_mode=count_mode, walkers=walkers,
                                     max_steps=1 << 40)
 
 
-def ref_nodes(prob, dtype, dual):
+def ref_nodes(prob, dtype, dual, ext=False):
     return run_plain(prob, dtype, dual=dual, findsubsols=False,
-                     count_mode=True)["nodes"].numpy()
+                     count_mode=True, ext=ext)["nodes"].numpy()
 
 
 def ref_sols(prob, dtype, dual):
@@ -287,22 +303,35 @@ def ref_sols(prob, dtype, dual):
                          count_mode=True)["sol_count"])
 
 
-EXT_FORMS = [(F64, False, False), (F64, True, False), (F64, False, True),
-             (F64, True, True), (F32, True, False), (F32, False, True)]
+# (element type, dual, sub-solutions, extended instance by name): the f64
+# primal form (the f64 primal instance), the same tree on the extended
+# instance, and the extended forms
+EXT_FORMS = [(F64, False, False, False), (F64, False, False, True),
+             (F64, True, False, False), (F64, False, True, False),
+             (F64, True, True, False), (F32, True, False, False),
+             (F32, False, True, False)]
 
 
-@pytest.mark.parametrize("dtype,dual,findsubsols", EXT_FORMS,
-                         ids=[kernels._form(*f) for f in EXT_FORMS])
+def ext_form_id(dtype, dual, findsubsols, ext):
+    return kernels._form(dtype, dual, findsubsols) + ("-extended" if ext
+                                                      else "")
+
+
+@pytest.mark.parametrize("dtype,dual,findsubsols,ext", EXT_FORMS,
+                         ids=[ext_form_id(*f) for f in EXT_FORMS])
 @pytest.mark.parametrize("width,grid", [(32, 1), (16, 3)])
 def test_host_compiled_extended_instances_match_plain(
-        host_build, dtype, dual, findsubsols, width, grid):
+        host_build, dtype, dual, findsubsols, ext, width, grid):
     """Count mode: per-level node counts, the solution count and the
     sub-solution distances equal the plain version's exactly where the
     launch donated nothing (the walk repeats its arithmetic; level 0's
     record comes out of the absorbed leaf range), else counts to the
     Pallas kernel's tolerance and records to RECORD_RTOL. Search mode:
     the same best distance (unique here). The whole tree under one root
-    donates, with the same counts and best as the root queue."""
+    donates, with the same counts and best as the root queue. The f64
+    primal tree runs on the f64 primal instance, with the lookahead, and
+    by name on the extended instance, without it, each against its own
+    plain walk."""
     from test_torch_enum_kernel import assert_counts
 
     prob = cached_problem(*EMU_PROBLEM, dual)
@@ -310,8 +339,10 @@ def test_host_compiled_extended_instances_match_plain(
     mr = prob["m_real"]
     for count_mode in (True, False):
         kw = dict(dual=dual, findsubsols=findsubsols, count_mode=count_mode)
-        ref = run_plain(prob, dtype, **kw)
-        out = run_host(lib, prob, dtype, grid=grid, **kw)
+        ref = run_plain(prob, dtype, ext=ext, **kw)
+        out = run_host(lib, prob, dtype, grid=grid, ext=ext, **kw)
+        assert (int(out["barren_skips"]) > 0) == \
+            (dtype == F64 and not (dual or findsubsols or ext))
         don = int(out["donations"])
         assert float(out["best_dist"][0]) == float(ref["best_dist"][0])
         if count_mode:
@@ -326,12 +357,47 @@ def test_host_compiled_extended_instances_match_plain(
         if findsubsols:
             check_subsol_records(prob, out, dtype, dual)
     one = run_host(lib, one_root(prob), dtype, grid=grid, dual=dual,
-                   findsubsols=False, count_mode=True)
+                   findsubsols=False, count_mode=True, ext=ext)
     assert int(one["donations"]) > 0
-    full = np.concatenate([ref_nodes(prob, dtype, dual)[:mr],
+    full = np.concatenate([ref_nodes(prob, dtype, dual, ext)[:mr],
                            prob["host_nodes"][mr:]])
     assert_counts(one["nodes"].numpy(), full, one["sol_count"],
                   ref_sols(prob, dtype, dual), int(one["donations"]))
+
+
+@pytest.mark.parametrize("grid", [1, 3])
+@pytest.mark.parametrize("width", WIDTHS)
+def test_host_compiled_f64_primal_instance_matches_plain(host_build, width,
+                                                         grid):
+    """The f64 primal instance (enum_chunk_f64_kernel) at every walker
+    width and at grids 1 and 3, on the d = 24 window at 1.3 times its
+    shortest vector (128 roots): count mode's per-level nodes and
+    solutions the plain f64 form's, exactly where the launch donated
+    nothing, else to the Pallas tolerance, and the same on the extended
+    instance against its own plain walk; the primal instance skips
+    barren descends, the extended one none, and the walk without the
+    skips takes more iterations. Search mode: the best distance of both
+    instances bit-equal to the plain version's."""
+    from test_torch_enum_kernel import assert_counts
+
+    prob = cached_problem(*EMU_PROBLEM, False)
+    lib = host_build(width)
+    mr = prob["m_real"]
+    runs = {}
+    for ext in (False, True):
+        for count_mode in (True, False):
+            kw = dict(dual=False, findsubsols=False, count_mode=count_mode)
+            ref = run_plain(prob, F64, ext=ext, **kw)
+            out = run_host(lib, prob, F64, grid=grid, ext=ext, **kw)
+            assert float(out["best_dist"][0]) == float(ref["best_dist"][0])
+            assert (int(out["barren_skips"]) > 0) == (not ext)
+            if count_mode:
+                assert_counts(out["nodes"].numpy()[:mr],
+                              ref["nodes"].numpy()[:mr], out["sol_count"],
+                              ref["sol_count"], int(out["donations"]))
+                assert int(out["sol_count"]) > 0
+                runs[ext] = out
+    assert int(runs[False]["walk_steps"]) < int(runs[True]["walk_steps"])
 
 
 # ---------------------------------------------------------------------------

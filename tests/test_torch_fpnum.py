@@ -15,6 +15,7 @@ import time
 import numpy as np
 import pytest
 
+from fplll_tpu.defs import FT_DD, FT_DPE
 from fplll_tpu.nr import fctx as jax_fctx
 from fplll_tpu_torch.native import get_fpnum
 from fplll_tpu_torch.nr import fctx
@@ -121,27 +122,62 @@ def test_division_by_zero_matches_jax(fps):
         assert bits(vt) == bits(vj)
 
 
+def ctx_protocol(ctx):
+    """zeros, from_int, exponent, dot, rnd_int and the numpy object-array
+    broadcast of one context, as bits."""
+    z = ctx.zeros((3, 3))
+    z[0, 0] = ctx.scalar(2.0)
+    v = ctx.from_int(2 ** 200 + 17)
+    d = ctx.dot(ctx.zeros(4) + ctx.scalar(2.0),
+                ctx.zeros(4) + ctx.scalar(3.0))
+    a = ctx.zeros(5)
+    a[...] = ctx.scalar(3.0)
+    s = ctx.scalar(2.0)
+    return (bits(z[0, 0] * z[0, 0]), bits(v), ctx.exponent(v), bits(d),
+            ctx.rnd_int(ctx.scalar(7.3)), [bits(x) for x in a * s],
+            [bits(x) for x in a - s * a])
+
+
+def compiled_ctxs(fps, kind):
+    """The JAX package's compiled context of `kind`, built from the
+    module the `fps` fixture loaded (with its retry), and the port's
+    compiled_ctx. Not the JAX package's compiled_ctx: it caches the
+    first answer of its loader for the whole process, and that answer
+    is None in a test process that loaded the module while another was
+    still writing it."""
+    return jax_fctx.CompiledCtx(kind, fps[0]), fctx.compiled_ctx(kind)
+
+
 @pytest.mark.parametrize("kind", KINDS)
-def test_ctx_protocol_matches_jax(kind):
-    """compiled_ctx of each kind: zeros, from_int, exponent, dot, rnd_int
-    and the numpy object-array broadcast, bit for bit."""
-    out = []
-    for mod in (jax_fctx, fctx):
-        ctx = mod.compiled_ctx(kind)
-        assert ctx is not None
-        z = ctx.zeros((3, 3))
-        z[0, 0] = ctx.scalar(2.0)
-        v = ctx.from_int(2 ** 200 + 17)
-        d = ctx.dot(ctx.zeros(4) + ctx.scalar(2.0),
-                    ctx.zeros(4) + ctx.scalar(3.0))
-        a = ctx.zeros(5)
-        a[...] = ctx.scalar(3.0)
-        s = ctx.scalar(2.0)
-        out.append((bits(z[0, 0] * z[0, 0]), bits(v), ctx.exponent(v),
-                    bits(d), ctx.rnd_int(ctx.scalar(7.3)),
-                    [bits(x) for x in a * s], [bits(x) for x in a - s * a]))
+def test_ctx_protocol_matches_jax(fps, kind):
+    """The compiled context of each kind: zeros, from_int, exponent, dot,
+    rnd_int and the numpy object-array broadcast, bit for bit."""
+    cj, ct = compiled_ctxs(fps, kind)
+    assert ct is not None
+    out = [ctx_protocol(cj), ctx_protocol(ct)]
     assert out[0] == out[1]
     assert out[1][2] == 201 and out[1][4] == 7
+
+
+def test_ctx_protocol_survives_a_poisoned_jax_loader(fps, monkeypatch):
+    """The JAX package's state after the collection-time build race: its
+    loader has given None (tried, no module), and get_ctx(FT_DPE) and
+    get_ctx(FT_DD) have cached None for dpe and dd in its compiled_ctx
+    cache. The contexts compared above still come from the loaded
+    module, for every kind, and compare bit for bit. The JAX package's
+    state is put back afterwards."""
+    import fplll_tpu.native as jn
+
+    monkeypatch.setattr(jn, "_FPNUM_TRIED", True)
+    monkeypatch.setattr(jn, "_FPNUM", None)
+    monkeypatch.setattr(jax_fctx, "_COMPILED_CACHE", {})
+    for ft in (FT_DPE, FT_DD):
+        jax_fctx.get_ctx(ft)
+    assert jax_fctx._COMPILED_CACHE == {"dpe": None, "dd": None}
+    assert jax_fctx.compiled_ctx("dpe") is None
+    for kind in KINDS:
+        cj, ct = compiled_ctxs(fps, kind)
+        assert ctx_protocol(cj) == ctx_protocol(ct), kind
 
 
 def test_random_chains_match_jax(fps):

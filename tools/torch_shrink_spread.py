@@ -24,7 +24,6 @@ asynchronously and idle walkers take donated ranges as they come free.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
 import os
 import statistics
@@ -40,15 +39,7 @@ def load(src: str, name: str):
     from fplll_tpu_torch.enum import kernels
 
     lib, log = cuda_build.build(name, src=src)
-    lib.enum_chunk_geometry.restype = ctypes.c_int
-    lib.enum_chunk_geometry.argtypes = [ctypes.c_int] * 5 + [
-        ctypes.POINTER(kernels._EnumGeometry)]
-    lib.enum_chunk_launch.restype = ctypes.c_int
-    lib.enum_chunk_launch.argtypes = [ctypes.POINTER(kernels._EnumParams),
-                                      ctypes.c_int, ctypes.c_void_p]
-    lib.enum_chunk_error_string.restype = ctypes.c_char_p
-    lib.enum_chunk_error_string.argtypes = [ctypes.c_int]
-    return lib, log
+    return kernels._bind(lib), log
 
 
 def timed(fn):
