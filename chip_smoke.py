@@ -8,10 +8,11 @@ Phases (each one fails the run if it fails):
      together (the enumeration kernel's every template instance and the
      pruner's gradient kernel, `-Xptxas -v` printed; the enumeration's
      instances without stack or spills, its six f32 instances of BKZ-2.0
-     at the registers recorded in BKZ_F32_PTXAS; both f64 instances'
-     registers, blocks per SM and walkers at M = 32, 64 and 128, the f64
-     primal one at two blocks per SM or more at M <= 64) and the native C
-     cores;
+     at the registers recorded in BKZ_F32_PTXAS; the registers, blocks
+     per SM and walkers at M = 32, 64 and 128 of the f64 primal instance
+     and of the dual, sub-solution and extended instances of both
+     element types, the f64 primal and f64 dual ones at two blocks per SM
+     or more at M <= 64) and the native C cores;
   2. the kernel against its plain PyTorch version on the card, for each
      launch form (root queue, with the plain version at 1024 and 16384
      lanes, a single root with nfix = 0) in count and search mode, a
@@ -33,7 +34,8 @@ Phases (each one fails the run if it fails):
      is 1e-5);
   5. proved SVP (d = 56), fast and proved CVP, dual SVP and sub-solutions
      (d = 50) on BKZ-20-reduced gen_intrel bases through the port's
-     public functions, each against the same call host-only;
+     public functions, each against the same call host-only; the dual
+     SVP also on the dual and the extended instance in turns;
   6. the user surfaces: `latticegen r d 10d` into `fplll -a svp` and
      `-a cvp` (in this process and, for the SVP, as a pipeline of two
      processes); the pruner's gradient kernel against its plain version
@@ -56,7 +58,8 @@ Phases (each one fails the run if it fails):
      default crossovers (the facade's 2M, the C tour's 60M), each with
      the card and host-only, six legs in processes of their own: the
      host-only ones start after phase 1 and run beside phases 2-7
-     without the card, SD-BKZ's card leg after phase 2 beside phases
+     without the card, SD-BKZ's card leg once phase 2's kernels have
+     run, beside phase 2's checks against the plain version and phases
      3-7, the other card legs after phase 7, with phase 2's grouped
      plain check beside them: one self-dual BKZ
      tour at block 60 on phase 3's warm-up basis (bkz_reduction), one loop of
@@ -95,15 +98,19 @@ environment back as it found it).
         # timing, so that every checkout is measured the same way
 
 Phase 2 also holds the f64, dual and sub-solution forms of the kernel
-against the plain version. The f64 primal form runs on its own instance
-(enum_chunk_f64_kernel, with the lookahead); the same trees also run on
-the extended instance (kernels._enum_run_extended),
-in turns on one card: phase 2's d = 40 tree (with each instance's ns per
-step at a grid of one block and latency floor), phase 5's proved SVP,
-and phase 8's HKZ windows, recorded by its card leg and replayed once
-both HKZ card legs have reduced, beside the SD-BKZ and slide card legs.
-The second HKZ card leg (the repeat leg, started once the first has
-reduced) hands its window lists for comparison with the first's.
+against the plain version, each on its own instance (enum_chunk_f64_kernel,
+enum_chunk_dual_kernel, enum_chunk_subsols_kernel, with the lookahead);
+the same trees also run on the extended instance
+(kernels._enum_run_extended), in turns on one card: phase 2's d = 40
+trees (with each instance's ns per step at a grid of one block and
+latency floor); phase 5's proved SVP (f64) and its dual SVP (f64-dual,
+d = 50, or the proved-SVP basis's where the d = 50 kernel takes no more
+than DUAL_TREE_MS); phase 8's HKZ windows, recorded by its card leg and
+replayed once both HKZ card legs have reduced, beside the SD-BKZ and
+slide card legs; and the `f32-dual` launches of SD-BKZ's card leg,
+recorded there and replayed once phase 8 has collected its legs. The
+second HKZ card leg (the repeat leg, started once the first has reduced)
+hands its window lists for comparison with the first's.
 
 The line before the last is one JSON object with the kernels' numbers;
 the last line is {"ok": true, "device": {...}}. Imports only torch, numpy
@@ -412,45 +419,35 @@ def native_ms(mut, rdiag, prune, A, count_mode, dual=False):
 
 def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                         grouped=(80, 60, GROUPED_RADIUS)):
-    """Phase 2. Returns the per-form records, the largest best-distance
-    difference, the timing record of the main-path shape and the grouped
-    form's check against its plain version, still to run (grouped_check).
-    The size parameters let it be rehearsed small; the script runs the
-    defaults."""
-    import torch
+    """Phase 2's kernel runs: every case's kernel timings and the checks
+    that need no plain version. Returns the per-form records, the checks
+    against the plain version still to run (calls that fill their
+    records' plain fields, log them and return the best-distance
+    difference: the smoke runs them once every kernel of phase 2 has been
+    timed, beside phase 8's SD-BKZ card leg), the timing record of the
+    main-path shape and the grouped form's check against its plain
+    version (grouped_check), run later still. The size parameters let it
+    be rehearsed small; the script runs the defaults."""
     from fplll_tpu_torch.enum import kernels
 
-    sync = torch.cuda.synchronize
-    forms, errs, timing = [], [], None
+    forms, checks, timing = [], [], None
     for name, d, seed, pruned, radius, nfix0, lanes, modes in cases:
         _, mut, rdiag, prune, A, _ = uniform_window(d, seed, pruned, radius)
         pack = packed_problem(mut, rdiag, prune, A, device, nfix0=nfix0)
         mr = pack["m_real"]
-        plain_args = {k: v for k, v in pack.items() if k != "m_real"}
         for count_mode in modes:
             kw = dict(is_svp=True, count_mode=count_mode, batch=lanes,
                       max_steps=1 << 30)
             k_out, k_ms = wrapper_ms(lambda: kernels.enum_run(**pack, **kw))
-            p_out, p_s = timed(lambda: kernels.enum_run_plain(
-                **plain_args, **kw), sync)
-            n_ms, n_nodes, _ = native_ms(mut, rdiag, prune, A, count_mode)
             mode = "count" if count_mode else "search"
-            if count_mode:
-                exact, total = compare_counts(f"{name} {mode}", k_out, p_out,
-                                              mr)
-            else:
-                exact, total = None, float(k_out["nodes"][:mr].sum())
-            kb, pb = float(k_out["best_dist"][0]), float(p_out["best_dist"][0])
-            errs.append(assert_best(f"{name} {mode}", kb, pb))
+            total = float(k_out["nodes"][:mr].sum())
             rec = {"form": name, "mode": mode, "m": pack["m"], "m_real": mr,
                    "nfix": pack["roots_x"].shape[1],
                    "R": pack["roots_x"].shape[0], "B": lanes,
-                   "kernel_ms": k_ms, "plain_ms": p_s * 1e3,
-                   "nodes": total, "nodes_per_s": total / (k_ms * 1e-3),
-                   "native_ms": n_ms, "native_nodes": n_nodes,
-                   "best": kb, "counts_exact": exact,
-                   **geometry_fields(k_out),
-                   "plain_steps": int(p_out["steps"])}
+                   "kernel_ms": k_ms, "nodes": total,
+                   "nodes_per_s": total / (k_ms * 1e-3),
+                   "best": float(k_out["best_dist"][0]),
+                   **geometry_fields(k_out)}
             rec["bound_ms"], rec["bound_by"], (rec["R_real"],) = bound_ms(
                 pack, k_out["nodes"], len(k_out["best_dist"]), d, [mr])
             if name == TIMED_CASE and count_mode:
@@ -462,14 +459,40 @@ def phase_kernel_checks(device, cases=CHECK_CASES, shrink=SHRINK_CASE,
                 rec[f"kernel_ms_at_{D56_KERNEL_RADIUS}"] = wrapper_ms(
                     lambda: kernels.enum_run(**wide, **kw))[1]
             forms.append(rec)
-            log("kernel-check " + json.dumps(rec))
+            checks.append(functools.partial(
+                form_plain_check, rec, pack, kw, k_out, (mut, rdiag, prune,
+                                                         A)))
 
-    rec, err = shrink_check(device, *shrink)
+    rec, check = shrink_check(device, *shrink)
     forms.append(rec)
-    errs.append(err)
+    checks.append(check)
     rec, grouped_plain = grouped_check(device, *grouped)
     forms.append(rec)
-    return forms, max(errs), timing, grouped_plain
+    return forms, checks, timing, grouped_plain
+
+
+def form_plain_check(rec, pack, kw, k_out, tree) -> float:
+    """One phase-2 case against its plain version on the same tensors
+    (count mode: compare_counts' tolerances; both modes: the best
+    distance), with the C core's time on the same tree; fills the
+    record's plain fields, logs it and returns the best-distance
+    difference."""
+    import torch
+    from fplll_tpu_torch.enum import kernels
+
+    name, mode, mr = rec["form"], rec["mode"], rec["m_real"]
+    plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+    p_out, p_s = timed(lambda: kernels.enum_run_plain(**plain_args, **kw),
+                       torch.cuda.synchronize)
+    n_ms, n_nodes, _ = native_ms(*tree, kw["count_mode"])
+    exact = compare_counts(f"{name} {mode}", k_out, p_out, mr)[0] \
+        if kw["count_mode"] else None
+    err = assert_best(f"{name} {mode}", rec["best"],
+                      float(p_out["best_dist"][0]))
+    rec.update(plain_ms=p_s * 1e3, native_ms=n_ms, native_nodes=n_nodes,
+               counts_exact=exact, plain_steps=int(p_out["steps"]))
+    log("kernel-check " + json.dumps(rec))
+    return err
 
 
 def grid_check(name, pack, kw, k_out, m_real) -> dict:
@@ -509,13 +532,16 @@ def shrink_check(device, name, d, seed, radius, spread=SHRINK_SPREAD_SEEDS):
     """Search mode with a bound that shrinks several times, at the main
     path's launch shape: an unpruned window whose ball holds tens of
     vectors, so lanes find several and the shared bound falls more than
-    once. The kernel's best must equal the plain version's and lie well
-    inside the start radius; its count-mode nodes at the final bound must
-    equal the plain version's per level; its search-mode nodes must lie
-    between those and SHRINK_TOL times those, while the tree at the start
-    radius holds at least 3 times more (so a kernel that ignored search
-    mode, or never re-read or lowered the bound, fails). The kernel's
-    ratio is also logged, not asserted, on the lattices of `spread`."""
+    once. The kernel's best must lie well inside the start radius; its
+    search-mode nodes must lie between its count-mode nodes at the final
+    bound and SHRINK_TOL times those, while the tree at the start radius
+    holds at least 3 times more (so a kernel that ignored search mode, or
+    never re-read or lowered the bound, fails). The kernel's ratio is
+    also logged, not asserted, on the lattices of `spread`. Returns the
+    record and its check against the plain version, still to run (as
+    phase_kernel_checks' are): the same best, the count at the final
+    bound equal per level, and the plain search's nodes inside the same
+    limits."""
     import torch
     from fplll_tpu_torch.enum import kernels
 
@@ -530,37 +556,43 @@ def shrink_check(device, name, d, seed, radius, spread=SHRINK_SPREAD_SEEDS):
 
     k_s, k_ms = wrapper_ms(lambda: kernels.enum_run(**pack, count_mode=False,
                                                     **kw))
-    p_s, p_t = timed(lambda: plain(pack, False), torch.cuda.synchronize)
-    kb, pb = float(k_s["best_dist"][0]), float(p_s["best_dist"][0])
+    kb = float(k_s["best_dist"][0])
     assert math.isfinite(kb), f"{name}: the search found nothing"
-    err = assert_best(f"{name} search", kb, pb)
     assert kb <= 0.9 * A, f"{name}: best {kb} not inside the radius {A}"
     final = dict(pack, A0=kb * 1.00001)     # the bound slack of the path
     k_f = kernels.enum_run(**final, count_mode=True, **kw)
-    exact, n_final = compare_counts(f"{name} count at the final bound", k_f,
-                                    plain(final, True), mr)
+    n_final = float(k_f["nodes"][:mr].sum())
     n_start = float(kernels.enum_run(**pack, count_mode=True,
                                      **kw)["nodes"][:mr].sum())
     n_k = float(k_s["nodes"][:mr].sum())
-    n_p = float(p_s["nodes"][:mr].sum())
     rec = {"form": name, "mode": "search", "m": pack["m"], "m_real": mr,
-           "B": 1024, "kernel_ms": k_ms, "plain_ms": p_t * 1e3,
-           "best": kb, "radius": A, "nodes": n_k, "plain_nodes": n_p,
-           "count_nodes_final_bound": n_final,
+           "B": 1024, "kernel_ms": k_ms, "best": kb, "radius": A,
+           "nodes": n_k, "count_nodes_final_bound": n_final,
            "count_nodes_start_radius": n_start,
-           "search_over_final": n_k / n_final,
-           "counts_exact_final_bound": exact,
-           **geometry_fields(k_s)}
+           "search_over_final": n_k / n_final, **geometry_fields(k_s)}
     rec["search_over_final_by_seed"] = {seed: n_k / n_final, **{
         s: kernel_search_overhead(device, d, s, radius) for s in spread}}
-    log("kernel-check " + json.dumps(rec))
     assert n_start >= 3 * n_final, f"{name}: the check cannot tell " \
         f"({n_start} nodes at the start radius, {n_final} at the end)"
-    for who, n in (("kernel", n_k), ("plain", n_p)):
+
+    def within(who, n):
         assert n_final * (1 - 1e-3) <= n <= SHRINK_TOL * n_final, \
             f"{name}: {who} search nodes {n} against {n_final} at the " \
             "final bound"
-    return rec, err
+    within("kernel", n_k)
+
+    def plain_check() -> float:
+        p_s, p_t = timed(lambda: plain(pack, False), torch.cuda.synchronize)
+        err = assert_best(f"{name} search", kb, float(p_s["best_dist"][0]))
+        exact, _ = compare_counts(f"{name} count at the final bound", k_f,
+                                  plain(final, True), mr)
+        n_p = float(p_s["nodes"][:mr].sum())
+        rec.update(plain_ms=p_t * 1e3, plain_nodes=n_p,
+                   counts_exact_final_bound=exact)
+        log("kernel-check " + json.dumps(rec))
+        within("plain", n_p)
+        return err
+    return rec, plain_check
 
 
 @functools.lru_cache(maxsize=None)
@@ -799,41 +831,49 @@ def ext_problem(d, seed, dtype, dual, device):
     return pack, (mut, rdiag, prune, A)
 
 
-def f64_instances(name, pack, kw, k_ms, p_out, m_real) -> dict:
-    """The f64 primal tree of one extended check on both f64 instances,
-    on one card, in turns: the f64 primal instance (its first time is the
-    check's kernel_ms, `k_ms`), the extended instance
-    (kernels._enum_run_extended), the extended one again and the f64
-    primal one again, each
-    the median of 3 CUDA-event timings of the wrapper. The extended
-    instance's answer against the plain version, which walks with the
-    lookahead: the best distance to EXT_RTOL (the two walks round trip
+# the instance each form of the proved solvers launches, beside which
+# phase 2 runs the same tree on the extended one: the label its numbers
+# carry in the kernels line
+INSTANCE_OF = {"f64": "f64 primal", "f32-dual": "dual", "f64-dual": "dual",
+               "f32-subsols": "subsols", "f64-subsols": "subsols"}
+
+
+def both_instances(name, form, pack, kw, k_ms, m_real):
+    """The tree of one extended check on the instance of its form
+    (INSTANCE_OF: the f64 primal, dual or sub-solution instance) and on
+    the extended instance, on one card, in turns: the form's instance
+    (its first time is the check's kernel_ms, `k_ms`), the extended
+    instance (kernels._enum_run_extended), the extended one again and
+    the form's instance again, each the median of 3 CUDA-event timings of
+    the wrapper. In count mode also each instance at a grid of one block:
+    its ns per step (the time over the longest walker walk, with 8
+    walkers on the card the latency of one step) and the latency floor of
+    its persistent-grid launch, the longest work item's steps times that.
+    Returns the record and its check against the plain version's output,
+    still to run (phase_extended_checks): the extended instance's best
+    distance and sub-solution distances to EXT_RTOL of the plain
+    version's, which walks with the lookahead (the two walks round trip
     the center sums at different nodes), in count mode the counts to
-    compare_counts' tolerance. In count mode also each instance at a
-    grid of one block: its ns per step (the time over the longest walker
-    walk, with 8 walkers on the card the latency of one step) and the
-    latency floor of its persistent-grid launch, the longest work item's
-    steps times that."""
+    compare_counts' tolerance."""
+    import numpy as np
     from fplll_tpu_torch.enum import kernels
 
-    runs = {"f64 primal": lambda **x: kernels.enum_run(**pack, **kw, **x),
+    t0 = time.perf_counter()
+    new = INSTANCE_OF[form]
+    rtol = EXT_RTOL[form[:3]]
+    runs = {new: lambda **x: kernels.enum_run(**pack, **kw, **x),
             "extended": lambda **x: kernels._enum_run_extended(
                 **pack, **kw, **x)}
-    ms = {"f64 primal": [k_ms], "extended": []}
+    ms = {new: [k_ms], "extended": []}
     outs = {}
-    for inst in ("extended", "extended", "f64 primal"):
+    for inst in ("extended", "extended", new):
         outs[inst], t = wrapper_ms(runs[inst])
         ms[inst].append(t)
     e_out = outs["extended"]
-    kb, pb = float(e_out["best_dist"][0]), float(p_out["best_dist"][0])
-    assert abs(kb - pb) <= EXT_RTOL["f64"] * pb, \
-        f"{name} on the extended instance: best {kb} vs {pb}"
-    rec = {"kernel_ms": ms, "extended_best_abs_err": abs(kb - pb),
+    rec = {"kernel_ms": ms,
            "extended_donations": int(e_out["donations"]),
            "extended_barren_skips": int(e_out["barren_skips"])}
     if kw["count_mode"]:
-        rec["extended_counts_exact"], _ = compare_counts(
-            f"{name} on the extended instance", e_out, p_out, m_real)
         for inst, run in runs.items():
             one, one_ms = wrapper_ms(lambda: run(grid=1), reps=1)
             ns = one_ms * 1e6 / int(one["steps"])
@@ -844,10 +884,29 @@ def f64_instances(name, pack, kw, k_ms, p_out, m_real) -> dict:
                                  "ns_per_step": ns},
                 "root_steps": int(outs[inst]["root_steps"]),
                 "latency_floor_ms": int(outs[inst]["root_steps"]) * ns * 1e-6,
+                "barren_skips": int(outs[inst]["barren_skips"]),
                 **{k: outs[inst]["geometry"][k]
                    for k in ("walkers", "blocks_per_sm")}}
-    log(f"f64-instances {name} " + json.dumps(rec))
-    return rec
+    rec["seconds"] = time.perf_counter() - t0
+
+    def plain_check(p_out) -> None:
+        kb, pb = float(e_out["best_dist"][0]), float(p_out["best_dist"][0])
+        assert abs(kb - pb) <= rtol * pb, \
+            f"{name} on the extended instance: best {kb} vs {pb}"
+        err = abs(kb - pb)
+        if "subsol_dist" in p_out and kw["count_mode"]:
+            a = e_out["subsol_dist"].cpu().numpy()[:m_real]
+            b = p_out["subsol_dist"].cpu().numpy()[:m_real]
+            assert np.allclose(a, b, rtol=rtol, atol=0.0), \
+                f"{name} on the extended instance: records {a} {b}"
+            err = max(err, float(np.abs(a - b).max(initial=0.0)))
+        rec["extended_best_abs_err"] = err
+        if kw["count_mode"]:
+            rec["extended_counts_exact"], _ = compare_counts(
+                f"{name} on the extended instance", e_out, p_out, m_real)
+        log(("f64-instances " if form == "f64" else "ext-instances ") +
+            f"{name} " + json.dumps(rec))
+    return rec, plain_check
 
 
 def phase_extended_checks(device, cases=EXT_CASES):
@@ -857,74 +916,89 @@ def phase_extended_checks(device, cases=EXT_CASES):
     nothing, count mode's per-level nodes, solution count and sub-solution
     distances exactly equal and both modes' best distances bit-equal;
     where it donated, the solution count equal, the nodes to
-    compare_counts' tolerance and the distances to EXT_RTOL. The f64
-    primal tree also runs on the extended instance (f64_instances).
-    Returns the records, each with the largest difference of its best
-    distance or a sub-solution distance from the plain version's
-    (max_abs_err)."""
-    import numpy as np
-    import torch
+    compare_counts' tolerance and the distances to EXT_RTOL. The trees
+    of the f64 primal, dual and sub-solution forms also run on the
+    extended instance (both_instances). The kernels run here; the checks
+    against the plain version are returned, still to run (as
+    phase_kernel_checks' are). Returns the records, which those checks
+    complete with the largest difference of the best distance or a
+    sub-solution distance from the plain version's (max_abs_err), and
+    the checks."""
     from fplll_tpu_torch.enum import kernels
 
-    sync = torch.cuda.synchronize
-    recs = []
+    recs, checks = [], []
     for form, dtype, dual, subsols, d, seed, modes in cases:
-        pack, (mut, rdiag, prune, A) = ext_problem(d, seed, dtype, dual,
-                                                   device)
+        pack, tree = ext_problem(d, seed, dtype, dual, device)
         assert kernels._form(pack["mut"].dtype, dual, subsols) == form
         mr = pack["m_real"]
-        plain_args = {k: v for k, v in pack.items() if k != "m_real"}
         for count_mode in modes:
             kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
                       max_steps=1 << 30, dual=dual, findsubsols=subsols)
             k_out, k_ms = wrapper_ms(lambda: kernels.enum_run(**pack, **kw))
-            p_out, p_s = timed(lambda: kernels.enum_run_plain(
-                **plain_args, **kw), sync)
-            n_ms, n_nodes, _ = native_ms(mut, rdiag, prune, A, count_mode,
-                                         dual)
             mode = "count" if count_mode else "search"
             name = f"{form} d{d} {mode}"
-            kb, pb = float(k_out["best_dist"][0]), float(p_out["best_dist"][0])
-            err = abs(kb - pb) if math.isfinite(kb) else 0.0
-            rtol = EXT_RTOL[dtype] if int(k_out["donations"]) else 0.0
-            assert abs(kb - pb) <= rtol * pb, \
-                f"{name}: best distance {kb} vs {pb}"
+            kb = float(k_out["best_dist"][0])
             assert math.isfinite(kb), f"{name}: nothing found"
-            kn = k_out["nodes"].cpu().numpy()[:mr]
-            exact = None
             if count_mode:
-                exact, _ = compare_counts(name, k_out, p_out, mr)
-                assert exact or rtol, f"{name}: counts differ, no donation"
                 assert int(k_out["sol_count"]) > 0, f"{name}: no solution"
-                if subsols:
-                    a = k_out["subsol_dist"].cpu().numpy()[:mr]
-                    b = p_out["subsol_dist"].cpu().numpy()[:mr]
-                    both = np.isfinite(a) & np.isfinite(b)
-                    err = max(err, float(np.abs(a - b)[both].max(
-                        initial=0.0)))
-                    assert np.allclose(a, b, rtol=rtol, atol=0.0), \
-                        f"{name}: records {a} {b}"
+            total = float(k_out["nodes"][:mr].sum())
             rec = {"form": form, "mode": mode, "dim": d, "seed": seed,
                    "m": pack["m"], "m_real": mr,
                    "nfix": pack["roots_x"].shape[1],
                    "R": pack["roots_x"].shape[0], "B": 1024,
-                   "kernel_ms": k_ms, "plain_ms": p_s * 1e3,
-                   "nodes": float(kn.sum()),
-                   "nodes_per_s": float(kn.sum()) / (k_ms * 1e-3),
-                   "native_ms": n_ms, "native_nodes": n_nodes, "best": kb,
-                   "max_abs_err": err,
-                   "counts_exact": exact,
-                   **geometry_fields(k_out),
-                   "plain_steps": int(p_out["steps"])}
+                   "kernel_ms": k_ms, "nodes": total,
+                   "nodes_per_s": total / (k_ms * 1e-3), "best": kb,
+                   **geometry_fields(k_out)}
             rec["bound_ms"], rec["bound_by"], (rec["R_real"],) = bound_ms(
                 pack, k_out["nodes"], len(k_out["best_dist"]), d, [mr],
                 subsols)
-            if form == "f64":
-                rec["instances"] = f64_instances(name, pack, kw, k_ms, p_out,
-                                                 mr)
+            both = None
+            if form in INSTANCE_OF:
+                rec["instances"], both = both_instances(name, form, pack, kw,
+                                                        k_ms, mr)
             recs.append(rec)
-            log("kernel-check " + json.dumps(rec))
-    return recs
+            checks.append(functools.partial(
+                extended_plain_check, rec, name, pack, kw, k_out, tree, dual,
+                both))
+    return recs, checks
+
+
+def extended_plain_check(rec, name, pack, kw, k_out, tree, dual,
+                         both) -> None:
+    """One of phase_extended_checks' cases against its plain version on
+    the same tensors, with the C core's time on the same tree (and the
+    extended instance's check, `both`); fills the record's plain fields
+    and max_abs_err and logs it."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.enum import kernels
+
+    mr, count_mode = rec["m_real"], kw["count_mode"]
+    plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+    p_out, p_s = timed(lambda: kernels.enum_run_plain(**plain_args, **kw),
+                       torch.cuda.synchronize)
+    n_ms, n_nodes, _ = native_ms(*tree, count_mode, dual)
+    kb, pb = rec["best"], float(p_out["best_dist"][0])
+    err = abs(kb - pb)
+    rtol = EXT_RTOL[rec["form"][:3]] if int(k_out["donations"]) else 0.0
+    assert abs(kb - pb) <= rtol * pb, f"{name}: best distance {kb} vs {pb}"
+    exact = None
+    if count_mode:
+        exact, _ = compare_counts(name, k_out, p_out, mr)
+        assert exact or rtol, f"{name}: counts differ, no donation"
+        if kw["findsubsols"]:
+            a = k_out["subsol_dist"].cpu().numpy()[:mr]
+            b = p_out["subsol_dist"].cpu().numpy()[:mr]
+            fin = np.isfinite(a) & np.isfinite(b)
+            err = max(err, float(np.abs(a - b)[fin].max(initial=0.0)))
+            assert np.allclose(a, b, rtol=rtol, atol=0.0), \
+                f"{name}: records {a} {b}"
+    rec.update(plain_ms=p_s * 1e3, native_ms=n_ms, native_nodes=n_nodes,
+               max_abs_err=err, counts_exact=exact,
+               plain_steps=int(p_out["steps"]))
+    if both is not None:
+        both(p_out)
+    log("kernel-check " + json.dumps(rec))
 
 
 # ---------------------------------------------------------------------------
@@ -1426,16 +1500,17 @@ class PathSpy:
                 "resets_on_card": self.resets_on_card}
 
 
-class F64Instance:
-    """Inside the block, every f64 primal launch of DeviceEnumerator (the
-    facade's and the window path's searches) runs on the f64 primal
-    instance (kernels.enum_run, extended=False) or on the extended one
-    (kernels._enum_run_extended), each timed with CUDA events around the
-    wrapper: `ms` and `root_steps` hold one entry per such launch. Other
-    forms pass through untimed (`other` counts them)."""
+class OnInstance:
+    """Inside the block, every launch of DeviceEnumerator (the facade's
+    and the window path's searches) of one of `forms` (kernels.FORMS)
+    runs on the instance of its form (kernels.enum_run, extended=False)
+    or on the extended one (kernels._enum_run_extended), each timed with
+    CUDA events around the wrapper: `ms` and `root_steps` hold one entry
+    per such launch. Other forms pass through untimed (`other` counts
+    them)."""
 
-    def __init__(self, extended: bool):
-        self.extended = extended
+    def __init__(self, extended: bool, forms=("f64",)):
+        self.extended, self.forms = extended, forms
 
     def __enter__(self):
         import torch
@@ -1449,8 +1524,8 @@ class F64Instance:
 
         def enum_run(*a, **kw):
             mut = kw["mut"] if "mut" in kw else a[0]
-            if mut.dtype != torch.float64 or kw.get("dual") or \
-                    kw.get("findsubsols"):
+            if kernels._form(mut.dtype, kw.get("dual", False),
+                             kw.get("findsubsols", False)) not in spy.forms:
                 spy.other += 1
                 return spy._saved(*a, **kw)
             t0 = torch.cuda.Event(enable_timing=True)
@@ -1473,24 +1548,27 @@ class F64Instance:
         return False
 
 
-def on_both_f64_instances(call, turns=(False, True, True, False)) -> dict:
-    """`call()` once per entry of `turns` (False: the f64 primal
-    instance, True: the extended one), in that order on one card: per
-    instance, each call's f64 launches and their kernel ms (CUDA events
-    around the wrapper), summed per call, and its wall; `results` holds
-    what each call returned, in turn order."""
+def on_both_instances(call, turns=(False, True, True, False),
+                      forms=("f64",), new="f64 primal") -> dict:
+    """`call()` once per entry of `turns` (False: the instance of each
+    form, labelled `new`; True: the extended one), in that order on one
+    card, with the launches of `forms` sent there (OnInstance): per
+    instance, each call's launches of those forms and their kernel ms
+    (CUDA events around the wrapper), summed per call, and its wall;
+    `results` holds what each call returned, in turn order."""
     import torch
 
-    out = {"f64 primal": [], "extended": [], "results": []}
+    out = {new: [], "extended": [], "results": []}
     for ext in turns:
-        with F64Instance(ext) as inst:
+        with OnInstance(ext, forms) as inst:
             t0 = time.perf_counter()
             res = call()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        out["extended" if ext else "f64 primal"].append({
+        out["extended" if ext else new].append({
             "launches": len(inst.ms), "kernel_ms": sum(inst.ms),
-            "wall_s": wall, "root_steps": max(inst.root_steps, default=0)})
+            "kernel_ms_per_launch": inst.ms, "wall_s": wall,
+            "root_steps": max(inst.root_steps, default=0)})
         out["results"].append(res)
     return out
 
@@ -1572,6 +1650,51 @@ def svp_tree_estimate(b) -> float:
     return gh_tree_estimate(rdiag, None, math.ldexp(A, -normexp))
 
 
+# a dual SVP tree the kernel dominates: phase 5's d = 50 dual SVP where
+# its kernel takes more than this on the extended instance, else the dual
+# SVP of the proved-SVP basis (d = 56)
+DUAL_TREE_MS = 50.0
+
+
+def dual_svp_on_both_instances(device, trees) -> dict:
+    """The dual SVP (shortest_vector_ex with SVP_DUAL, the `f64-dual`
+    form) on the dual instance and on the extended one in turns
+    (on_both_instances), on the first of `trees` (label, basis, the
+    host's dual length or None) whose one run on the extended instance
+    took more than DUAL_TREE_MS of kernel, else on the last: per turn
+    the kernel ms and wall; every turn's dual length, recomputed in f64
+    from its vector, equal to the others' (and to the host's where
+    given) to PHASE5_RTOL."""
+    from fplll_tpu_torch.algs.svpcvp import shortest_vector_ex
+    from fplll_tpu_torch.defs import SVP_DUAL
+
+    t0 = time.perf_counter()
+    probes = {}
+    for label, b, host in trees:
+        def call(b=b):
+            return shortest_vector_ex(b.copy(), flags=SVP_DUAL, device=device)
+        probe = on_both_instances(call, turns=(True,), forms=("f64-dual",),
+                                  new="dual")
+        probes[label] = probe["extended"][0]["kernel_ms"]
+        if probes[label] > DUAL_TREE_MS or label == trees[-1][0]:
+            break
+    both = on_both_instances(call, forms=("f64-dual",), new="dual")
+    lengths = []
+    for status, _, ev, _ in both.pop("results"):
+        assert status == 0, status
+        lengths.append(dual_length(b, ev.begin()[1]))
+    ref = host if host is not None else lengths[0]
+    assert all(abs(v - ref) <= PHASE5_RTOL * ref for v in lengths), \
+        (lengths, host)
+    assert all(r["launches"] > 0 for k in ("dual", "extended")
+               for r in both[k]), both
+    rec = {"tree": f"dual SVP {label}", "probe_extended_kernel_ms": probes,
+           "lengths": lengths, "host_length": host, **both,
+           "seconds": time.perf_counter() - t0}
+    log("dual-instances " + json.dumps(rec))
+    return rec
+
+
 def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
                   svp_seed=SVP_SEED, seed=CVP_SEED):
     """Phase 5: proved SVP, both CVP methods, dual SVP and sub-solutions
@@ -1593,7 +1716,7 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
     # radius the search starts from, the shortest basis vector) of the
     # smallest d = 60 tree among seeds 1-30 (seed 5) is logged beside this
     # tree's, to show why the host certificate would take too long there
-    b = intrel_basis(svp_dim, svp_seed)
+    b = b_svp = intrel_basis(svp_dim, svp_seed)
     log("svp-size " + json.dumps({
         f"d{svp_dim} seed {svp_seed}": svp_tree_estimate(b),
         "d60 seed 5": svp_tree_estimate(intrel_basis(60, 5))}))
@@ -1604,7 +1727,7 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
     nh = sum(v * v for v in lattice_point(b, xh))
     rec.update(status=(sc, sh), norm_card=nc, norm_host=nh)
     # the same call on both f64 instances, in turns: kernel ms and wall
-    both = on_both_f64_instances(
+    both = on_both_instances(
         lambda: shortest_vector(b.copy(), device=device))
     norms = [sum(v * v for v in lattice_point(b, x))
              for _, x in both.pop("results")]
@@ -1662,10 +1785,12 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
     lc, lh = dual_length(b, ec.begin()[1]), dual_length(b, eh.begin()[1])
     rec.update(status=(sc, sh), length_card=lc, length_host=lh,
                reported_card=ec.begin()[0], reported_host=eh.begin()[0])
-    log("svp-cvp " + json.dumps(rec))
     assert sc == sh == 0 and abs(lc - lh) <= PHASE5_RTOL * lh, rec
     assert abs(rec["reported_card"] - rec["reported_host"]) <= \
         PHASE5_RTOL * rec["reported_host"], rec
+    rec["dual_instances"] = dual_svp_on_both_instances(
+        device, ((f"d{cvp_dim}", b, lh), (f"d{svp_dim}", b_svp, None)))
+    log("svp-cvp " + json.dumps(rec))
     recs.append(rec)
 
     # sub-solutions: each record is a passing node (its recomputed
@@ -3170,12 +3295,17 @@ def run_fplll(argv, b, codes=(0,)):
 # smoke's wall holds the longest leg, not their sum. The host-only legs
 # start after phase 1 and run beside phases 2-7 on the CPU alone: they
 # do not see the card (CUDA_VISIBLE_DEVICES empty, FPLLL_TORCH_DEVICE=
-# cpu). Phase 2, whose kernel times the kernels line reports, has the
-# card to itself. SD-BKZ's card leg cannot follow phase 7 within the
-# smoke's limit (the smoke then ended 58-64 s short of it), so it starts
-# after phase 2 and runs beside phases 3-7: its card searches take about
-# 4 s of its wall, in about 60 launches, and the kernels line marks the
-# gradient kernel's times, from phase 6, as taken beside it. The other
+# cpu). Phase 2's kernel runs, whose times the kernels line reports,
+# have the card to itself. SD-BKZ's card leg cannot follow phase 7
+# within the smoke's limit (the smoke then ended 58-64 s short of it),
+# nor follow the whole of phase 2 on a slow host (phase 2 took 112-203
+# s, almost all of it plain-version runs, and on the host where it took
+# 203 s the leg ran more than 900 s), so it starts once
+# phase 2's kernels have run and runs beside phase 2's checks against
+# the plain version and phases 3-7: its card searches take about 4 s of
+# its wall, in about 60 launches, and the kernels line marks the plain
+# versions' times and the gradient kernel's, from phase 6, as taken
+# beside it. The other
 # card legs start after phase 7. Phase 2's grouped plain check, two or
 # three minutes of a host-bound loop of small launches, runs beside them
 # once HKZ's reduction has ended (HKZ's card searches fill the card for
@@ -3254,6 +3384,91 @@ def load_windows(path: str) -> list:
         return [tuple(z[f"{i}_{j}"] for j in range(5)) for i in range(n)]
 
 
+class LaunchRecorder:
+    """Inside the block, keeps the inputs and the answer of every launch
+    of one form that DeviceEnumerator makes (through enum/device.py's
+    enum_run): the packed tensors as numpy arrays, the root queue cut
+    after its last live root (its padded length kept), the scalars, and
+    the best distance, solution count and nodes that came back. `save`
+    writes them into one .npz file (load_launches)."""
+
+    def __init__(self, form: str):
+        self.form, self.launches = form, []
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from fplll_tpu_torch.enum import device, kernels
+
+        self._saved = device.enum_run
+        spy = self
+
+        def enum_run(**kw):
+            out = spy._saved(**kw)
+            if kernels._form(kw["mut"].dtype, kw.get("dual", False),
+                             kw.get("findsubsols", False)) != spy.form:
+                return out
+            rpd = kw["roots_pd"].cpu().numpy()
+            live = int(np.flatnonzero(np.isfinite(rpd)).max(initial=-1)) + 1
+            rec = {k: v.cpu().numpy()[:live] if k in (
+                "roots_x", "roots_a", "roots_pd") else v.cpu().numpy()
+                for k, v in kw.items() if isinstance(v, torch.Tensor)}
+            rec["scalars"] = np.array(
+                [kw["m"], kw["m_real"], kw["is_svp"], kw["count_mode"],
+                 kw["dual"], kw["findsubsols"], len(rpd)], dtype=np.int64)
+            rec["A0"] = np.array(float(kw["A0"]))
+            rec["answer"] = np.array(
+                [float(out["best_dist"][0]), float(out["sol_count"]),
+                 float(out["nodes"].sum())])
+            spy.launches.append(rec)
+            return out
+
+        device.enum_run = enum_run
+        return self
+
+    def __exit__(self, *exc):
+        from fplll_tpu_torch.enum import device
+
+        device.enum_run = self._saved
+        return False
+
+    def save(self, path: str) -> None:
+        import numpy as np
+        np.savez(path, **{f"{i}/{k}": v for i, rec in
+                          enumerate(self.launches) for k, v in rec.items()})
+
+
+def load_launches(path: str) -> list:
+    """LaunchRecorder.save's launches: per launch the keyword arguments of
+    kernels.enum_run (numpy arrays, the root queue padded back as the
+    enumerator padded it) and the answer (best distance, solution count,
+    nodes)."""
+    import numpy as np
+    out = {}
+    with np.load(path) as z:
+        for key in z.files:
+            i, name = key.split("/")
+            out.setdefault(int(i), {})[name] = z[key]
+    launches = []
+    for i in sorted(out):
+        rec = out[i]
+        m, m_real, is_svp, count_mode, dual, subsols, R = (
+            int(v) for v in rec.pop("scalars"))
+        for name in ("roots_x", "roots_a", "roots_pd"):
+            if name in rec:
+                a = rec[name]
+                pad = np.full((R - len(a),) + a.shape[1:],
+                              np.inf if name == "roots_pd" else 0.0,
+                              dtype=a.dtype)
+                rec[name] = np.concatenate([a, pad])
+        launches.append({"kw": dict(
+            {k: v for k, v in rec.items() if k not in ("A0", "answer")},
+            A0=float(rec["A0"]), m=m, m_real=m_real, is_svp=bool(is_svp),
+            count_mode=bool(count_mode), dual=bool(dual),
+            findsubsols=bool(subsols)), "answer": rec["answer"]})
+    return launches
+
+
 def variant_leg(run, leg, device, **sizes) -> dict:
     """One leg of one of phase 8's reductions, in this process: with the
     card at the default crossovers (no FPLLL_TPU_HYBRID_NODES in the
@@ -3264,7 +3479,9 @@ def variant_leg(run, leg, device, **sizes) -> dict:
     output: a digest of the input, LLL-reducedness and root-Hermite
     factors, the first vector's squared norm and the r_ii profile (exact
     Gram); a card leg of HKZ also writes the window lists the C tour
-    handed to the card into a file (`windows_file`, load_windows)."""
+    handed to the card into a file (`windows_file`, load_windows), and
+    SD-BKZ's card leg the inputs and answers of its `f32-dual` launches
+    (`dual_launches_file`, load_launches)."""
     import contextlib
     import hashlib
     import tempfile
@@ -3279,8 +3496,10 @@ def variant_leg(run, leg, device, **sizes) -> dict:
     case, call, forms = variant_call(run, device, block)
     os.environ.pop("FPLLL_TPU_HYBRID_NODES", None)
     RandGen.init_with_seed(12)
+    recorder = LaunchRecorder("f32-dual") if (run, leg) == ("sd-bkz", "card") \
+        else contextlib.nullcontext()
     with HostOnly() if leg == "host" else contextlib.nullcontext(), \
-            VariantSpy() as spy:
+            VariantSpy() as spy, recorder:
         span = [time.time()]
         t0 = time.perf_counter()
         out = call(start)
@@ -3296,6 +3515,12 @@ def variant_leg(run, leg, device, **sizes) -> dict:
         os.close(fd)
         save_windows(windows_file, spy.windows)
         print(f"VARIANT_WINDOWS {windows_file}", flush=True)
+    launches_file = None
+    if isinstance(recorder, LaunchRecorder):
+        fd, launches_file = tempfile.mkstemp(
+            prefix="chip_smoke_sd_bkz_dual_", suffix=".npz")
+        os.close(fd)
+        recorder.save(launches_file)
     t0 = time.perf_counter()
     cert = spy.certify() if leg != "repeat" else {"answers": 0}
     cert["seconds"] = time.perf_counter() - t0
@@ -3311,7 +3536,7 @@ def variant_leg(run, leg, device, **sizes) -> dict:
             "lll_reduced": red, "rhf_start": rhf_start, "rhf": rhf,
             "norm_b1": sum(int(v) ** 2 for v in out.a[0]),
             "profile": [float(x) for x in np.ldexp(r, e)],
-            "windows_file": windows_file}
+            "windows_file": windows_file, "dual_launches_file": launches_file}
 
 
 def start_variant_leg(run, leg) -> dict:
@@ -3522,7 +3747,7 @@ def replay_hkz_windows(windows, device,
     worst = 0.0
     for ext in turns:
         per, launches, steps = [], 0, []
-        with F64Instance(ext) as inst:
+        with OnInstance(ext) as inst:
             for muts, rdiags, prunes, maxd, leg_dists in windows:
                 n = len(inst.ms)
                 dists, _, _ = device_mod.device_enumerate_windows(
@@ -3544,6 +3769,55 @@ def replay_hkz_windows(windows, device,
             "kernel_ms_sum": sum(per), "kernel_ms_per_list": per,
             "launches": launches, "root_steps_per_list": steps,
             "other_forms": inst.other})
+    out["largest_rel_diff_from_leg"] = worst
+    return out
+
+
+# relative difference of a replayed f32 answer from the leg's own: the
+# f32 bound slack, the rule phase 8 holds f32 answers to
+F32_REPLAY_RTOL = 1e-5
+
+
+def replay_launches(launches, device, new,
+                    turns=(False, True, True, False)) -> dict:
+    """Launches recorded by LaunchRecorder (load_launches) made again on
+    this card, once per entry of `turns` (False: the instance of their
+    form, labelled `new`; True: the extended one, kernels._enum_run_extended),
+    in that order: per turn the kernel ms of each launch (CUDA events
+    around the wrapper) and their sum, and the longest work item's steps;
+    every answer's best distance the leg's own to F32_REPLAY_RTOL (finite
+    where the leg's was)."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.enum import kernels
+
+    on_card = [{k: torch.as_tensor(v, device=device)
+                if isinstance(v, np.ndarray) else v
+                for k, v in rec["kw"].items()} for rec in launches]
+    out = {"launches": len(launches), new: [], "extended": []}
+    worst = 0.0
+    for ext in turns:
+        run = kernels._enum_run_extended if ext else kernels.enum_run
+        per, steps, skips = [], [], 0
+        for kw, rec in zip(on_card, launches):
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            res = run(**kw)
+            t1.record()
+            torch.cuda.synchronize()
+            per.append(t0.elapsed_time(t1))
+            steps.append(int(res.get("root_steps", 0)))
+            skips += int(res["barren_skips"])
+            got, leg = float(res["best_dist"][0]), float(rec["answer"][0])
+            assert math.isfinite(got) == math.isfinite(leg), (ext, got, leg)
+            if math.isfinite(leg):
+                rel = abs(got - leg) / leg
+                assert rel <= F32_REPLAY_RTOL, (ext, got, leg)
+                worst = max(worst, rel)
+        out["extended" if ext else new].append({
+            "kernel_ms_sum": sum(per), "kernel_ms_per_launch": per,
+            "root_steps_per_launch": steps, "barren_skips": skips})
     out["largest_rel_diff_from_leg"] = worst
     return out
 
@@ -3577,11 +3851,19 @@ def variant_numbers(recs) -> dict:
 # iterations earlier)
 BKZ_F32_PTXAS = {(32, False): 73, (32, True): 64, (64, False): 80,
                  (64, True): 80, (128, False): 101, (128, True): 100}
+# the walk of each templated instance (EnumWalk in csrc/enum_chunk.cu)
+WALK_KERNELS = {"dual": "enum_chunk_dual_kernel",
+                "subsols": "enum_chunk_subsols_kernel",
+                "extended": "enum_chunk_ext_kernel"}
+
+
 def ptxas_instances(build_log: str) -> dict:
     """Per instance of enum_chunk_kernel (f32 primal),
-    enum_chunk_f64_kernel (f64 primal) and enum_chunk_ext_kernel in nvcc's
-    `-Xptxas -v` output: (element type, M, W, SMEM, extended walk) ->
-    (registers, stack frame, spill stores, spill loads)."""
+    enum_chunk_f64_kernel (f64 primal), enum_chunk_dual_kernel,
+    enum_chunk_subsols_kernel and enum_chunk_ext_kernel in nvcc's
+    `-Xptxas -v` output: (element type, M, W, SMEM, walk: "primal",
+    "dual", "subsols" or "extended") -> (registers, stack frame, spill
+    stores, spill loads)."""
     out, key = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -3589,20 +3871,21 @@ def ptxas_instances(build_log: str) -> dict:
         if m:
             t = re.match(r"_Z\d+enum_chunk_kernelILi(\d+)ELi(\d+)ELb([01])E",
                          m.group(1))
-            e = re.match(r"_Z\d+enum_chunk_ext_kernelI([fd])Li(\d+)ELi"
-                         r"(\d+)E", m.group(1))
             f = re.match(r"_Z\d+enum_chunk_f64_kernelILi(\d+)ELi(\d+)E",
                          m.group(1))
             key = None
             if t is not None:
                 key = ("float", int(t.group(1)), int(t.group(2)),
-                       t.group(3) == "1", False)
-            if e is not None:
-                key = ("double" if e.group(1) == "d" else "float",
-                       int(e.group(2)), int(e.group(3)), True, True)
+                       t.group(3) == "1", "primal")
             if f is not None:
                 key = ("double", int(f.group(1)), int(f.group(2)), True,
-                       False)
+                       "primal")
+            for walk, name in WALK_KERNELS.items():
+                e = re.match(rf"_Z\d+{name}I([fd])Li(\d+)ELi(\d+)E",
+                             m.group(1))
+                if e is not None:
+                    key = ("double" if e.group(1) == "d" else "float",
+                           int(e.group(2)), int(e.group(3)), True, walk)
             if key is not None:
                 out.setdefault(key, [None, None, None, None])
             continue
@@ -3645,29 +3928,52 @@ def f64_geometries(ms=(32, 64, 128)) -> dict:
     """Blocks per SM, grid and walkers of the launcher's persistent grid
     for both f64 instances, the f64 primal one and the extended one, at
     each height bucket (one problem, its shared memory)."""
+    from fplll_tpu_torch.enum import kernels
+
+    return walk_geometries((("f64 primal", "double", kernels.WALK_PRIMAL),
+                            ("extended", "double", kernels.WALK_EXT)), ms)
+
+
+def walk_geometries(instances, ms=(32, 64, 128)) -> dict:
+    """The same for each (label, element type, walk) of `instances`."""
     import torch
     from fplll_tpu_torch.enum import kernels
 
     out = {}
-    for name, ext in (("f64 primal", False), ("extended", True)):
+    for name, elem, walk in instances:
+        dtype = torch.float64 if elem == "double" else torch.float32
         for M in ms:
-            g = kernels._geometry(M, 1, torch.float64, ext)
+            g = kernels._geometry(M, 1, dtype, walk)
             out[f"{name} M={M}"] = {k: g[k] for k in (
                 "blocks_per_sm", "grid", "walkers", "smem")}
     return out
+
+
+def walk_instances():
+    """(label, element type, walk code) of the dual, sub-solution and
+    extended instances of both element types, the label as the kernels
+    line writes it ("f64-dual", "f32-extended", ...)."""
+    from fplll_tpu_torch.enum import kernels
+
+    codes = {"dual": kernels.WALK_DUAL, "subsols": kernels.WALK_SUBSOLS,
+             "extended": kernels.WALK_EXT}
+    return [(f"{'f64' if elem == 'double' else 'f32'}-{walk}", elem, code)
+            for walk, code in codes.items() for elem in ("float", "double")]
 
 
 def phase_build() -> dict:
     """Phase 1: build both kernels at once (one nvcc per source, started
     together), print every instance's registers, stack frame and spills,
     and assert the enumeration kernel's instance set (the six f32
-    instances of BKZ-2.0, M x SMEM, the f64 primal instance per M and the
-    extended walk per element type and M), that none of them has a stack
-    frame or spills, that the six f32 instances compile to the registers
-    of BKZ_F32_PTXAS, and that the pruner's gradient kernel has no stack
-    frame and no spills. Prints blocks per SM and walkers of both f64
-    instances at M = 32, 64 and 128, and asserts at least two blocks per
-    SM for the f64 primal instance at M = 32 and 64."""
+    instances of BKZ-2.0, M x SMEM, the f64 primal instance per M, and
+    the dual, sub-solution and extended walks per element type and M),
+    that none of them has a stack frame or spills, that the six f32
+    instances compile to the registers of BKZ_F32_PTXAS, and that the
+    pruner's gradient kernel has no stack frame and no spills. Prints
+    blocks per SM and walkers of both f64 instances and of the dual,
+    sub-solution and extended instances of both element types at M = 32,
+    64 and 128, and asserts at least two blocks per SM for the f64 primal
+    and the f64 dual instances at M = 32 and 64."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fplll_tpu_torch.enum import kernels
@@ -3695,7 +4001,7 @@ def phase_build() -> dict:
     for line in (kernels.BUILD_LOG + torchgrad.BUILD_LOG).strip().splitlines():
         log(f"  ptxas: {line.strip()}")
     inst = ptxas_instances(kernels.BUILD_LOG)
-    log("ptxas: (type, M, W, SMEM, extended) -> (registers, stack frame, "
+    log("ptxas: (type, M, W, SMEM, walk) -> (registers, stack frame, "
         "spill stores, spill loads): " + json.dumps(
             {str(k): v for k, v in sorted(inst.items())}))
     pruner_ptxas = ptxas_function(torchgrad.BUILD_LOG, "pruner_grad_kernel")
@@ -3705,40 +4011,66 @@ def phase_build() -> dict:
     assert pruner_ptxas is not None, "no pruner_grad_kernel in the build"
     assert pruner_ptxas[1:] == (0, 0, 0), \
         f"pruner_grad_kernel has a stack frame or spills: {pruner_ptxas}"
-    bkz = {("float", M, 32, sm, False): (regs, 0, 0, 0)
+    bkz = {("float", M, 32, sm, "primal"): (regs, 0, 0, 0)
            for (M, sm), regs in BKZ_F32_PTXAS.items()}
-    ext = {(t, M, 32, True, True) for t in ("float", "double")
-           for M in (32, 64, 128)}
-    f64 = {("double", M, 32, True, False) for M in (32, 64, 128)}
-    assert set(inst) == set(bkz) | ext | f64, f"instances {sorted(inst)}"
+    walks = {(t, M, 32, True, w) for t in ("float", "double")
+             for M in (32, 64, 128) for w in WALK_KERNELS}
+    f64 = {("double", M, 32, True, "primal") for M in (32, 64, 128)}
+    assert set(inst) == set(bkz) | walks | f64, f"instances {sorted(inst)}"
     assert all(v[1] == v[2] == v[3] == 0 for v in inst.values()), \
         "an instance has a stack frame or spills"
     for k, v in bkz.items():
         assert inst[k] == v, f"{k}: {inst[k]} against {v}"
-    f64_ptxas = {f"{name} M={k[1]}": inst[k] for name, keys in (
-        ("f64 primal", f64), ("extended", {("double", M, 32, True, True)
-                                           for M in (32, 64, 128)}))
-        for k in sorted(keys)}
+    f64_ptxas = {f"{name} M={M}": inst[("double", M, 32, True, w)]
+                 for name, w in (("f64 primal", "primal"),
+                                 ("extended", "extended"))
+                 for M in (32, 64, 128)}
     geo = f64_geometries()
     log("f64 instances: (registers, stack frame, spill stores, spill "
         "loads) " + json.dumps(f64_ptxas) + "; persistent grid " +
         json.dumps(geo))
     for M in (32, 64):
         assert geo[f"f64 primal M={M}"]["blocks_per_sm"] >= 2, geo
+    walk_ptxas = {f"{label} M={M}": inst[(elem, M, 32, True,
+                                          label.split("-", 1)[1])]
+                  for label, elem, _ in walk_instances()
+                  for M in (32, 64, 128)}
+    walk_geo = walk_geometries(walk_instances())
+    log("walk instances: (registers, stack frame, spill stores, spill "
+        "loads) " + json.dumps(walk_ptxas) + "; persistent grid " +
+        json.dumps(walk_geo))
+    for M in (32, 64):
+        assert walk_geo[f"f64-dual M={M}"]["blocks_per_sm"] >= 2, walk_geo
     return {"nvcc_s": build_s, "pruner_nvcc_s": pruner_s, "wall_s": wall,
             "instances": len(inst), "pruner_ptxas": pruner_ptxas,
-            "f64_ptxas": f64_ptxas, "f64_geometry": geo}
+            "f64_ptxas": f64_ptxas, "f64_geometry": geo,
+            "walk_ptxas": walk_ptxas, "walk_geometry": walk_geo}
+
+
+# the kernel each form of the proved solvers launches
+KERNEL_OF = {"f64": "enum_chunk_f64_kernel<M, 32>",
+             "f32-dual": "enum_chunk_dual_kernel<float, M, 32> f32-dual",
+             "f64-dual": "enum_chunk_dual_kernel<double, M, 32> f64-dual",
+             "f32-subsols":
+             "enum_chunk_subsols_kernel<float, M, 32> f32-subsols",
+             "f64-subsols":
+             "enum_chunk_subsols_kernel<double, M, 32> f64-subsols"}
 
 
 def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
-                     replay=None) -> list:
+                     replay=None, dual_replay=None) -> list:
     """The `kernels` line's entry of each form of the proved solvers: its
     phase-2 numbers (count mode, and search mode where it ran) and its
     launches on phase 5's path and on phases 6-8 (`path_counts`). The
     `f64` form's entry is the f64 primal instance's, with the same trees
     on the extended instance beside it: phase 2's d = 40 tree, phase 5's
     proved SVP and phase 8's replayed HKZ windows (`replay`), and both
-    instances' registers and geometry from phase 1 (`build_rec`)."""
+    instances' registers and geometry from phase 1 (`build_rec`). The
+    dual and sub-solution forms' entries are their instances', each with
+    `ext_instances`: phase 2's tree on both, and for `f64-dual` phase 5's
+    dual SVP, for `f32-dual` SD-BKZ's replayed launches (`dual_replay`).
+    A last entry is the extended instance's, which runs the combined
+    forms (no launches on the path) and every comparison."""
     launches = dict(path_counts)
     for r in svp_recs:
         for form, n in r["card"]["launches"].items():
@@ -3752,8 +4084,7 @@ def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
                                      "findsubsols" if "subsols" in form
                                      else "") if w) or "primal"
         entries.append({
-            "name": "enum_chunk_f64_kernel<M, 32>" if form == "f64" else
-            f"enum_chunk_ext_kernel<{elem}, M, 32> {form}",
+            "name": KERNEL_OF[form],
             "route": "cuda",
             "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
             "replaces": f"fplll_tpu/enum/tpu.py:213 (_enum_run, {elem} "
@@ -3786,7 +4117,81 @@ def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
         if form == "f64":
             entries[-1]["f64_instances"] = f64_instance_numbers(
                 by_mode, svp_recs, build_rec, replay)
+        else:
+            entries[-1]["ext_instances"] = ext_instance_numbers(
+                form, by_mode, svp_recs, build_rec, dual_replay)
+    entries.append(ext_kernel_entry(ext_recs, launches))
     return entries
+
+
+def ext_instance_numbers(form, by_mode, svp_recs, build_rec,
+                         dual_replay) -> dict:
+    """A dual or sub-solution entry's comparison of its instance with the
+    extended one, each measured in this run on this card: phase 2's
+    d = 40 tree (kernel ms in turns per mode, ns per step at a grid of
+    one block, the latency floor, barren skips), for `f64-dual` phase 5's
+    dual SVP (kernel ms and wall per call) and for `f32-dual` SD-BKZ's
+    replayed launches (kernel ms summed per turn), registers and
+    geometry."""
+    new = INSTANCE_OF[form]
+    dual = next((r["dual_instances"] for r in svp_recs
+                 if "dual_instances" in r), None)
+    out = {}
+    for inst in (new, "extended"):
+        label = f"{form[:3]}-{'extended' if inst == 'extended' else new}"
+        rec = {
+            "d40_kernel_ms": {m: r["instances"]["kernel_ms"][inst]
+                              for m, r in by_mode.items()},
+            "d40_count": by_mode["count"]["instances"][inst],
+            "ptxas_M64": None if build_rec is None else
+            build_rec["walk_ptxas"][f"{label} M=64"],
+            "geometry": None if build_rec is None else
+            {k: v for k, v in build_rec["walk_geometry"].items()
+             if k.startswith(label + " ")}}
+        if form == "f64-dual" and dual is not None:
+            rec["dual_svp"] = dual["tree"]
+            rec["dual_svp_kernel_ms"] = [r["kernel_ms"] for r in dual[inst]]
+            rec["dual_svp_wall_s"] = [r["wall_s"] for r in dual[inst]]
+        if form == "f32-dual" and dual_replay is not None:
+            rec["sd_bkz_replay_kernel_ms"] = [
+                r["kernel_ms_sum"] for r in dual_replay[inst]]
+        out[inst] = rec
+    return out
+
+
+def ext_kernel_entry(ext_recs, launches) -> dict:
+    """The extended instance's entry: the combined forms' launches on the
+    path (none), and its numbers from phase 2's comparisons, where it ran
+    each dual and sub-solution tree beside the form's instance: the f64
+    dual d = 40 count tree's first kernel ms on it, that tree's plain
+    version and bound, and its largest difference from the plain version
+    over every comparison."""
+    comps = [r for r in ext_recs if r["form"] in INSTANCE_OF]
+    c = next(r for r in comps if (r["form"], r["mode"]) ==
+             ("f64-dual", "count"))
+    return {
+        "name": "enum_chunk_ext_kernel<T, M, 32> (f32-dual-subsols, "
+                "f64-dual-subsols; every comparison)",
+        "route": "cuda",
+        "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
+        "replaces": "fplll_tpu/enum/tpu.py:213 (_enum_run, dual and "
+                    "findsubsols as runtime flags)",
+        "launches": sum(launches.get(f, 0) for f in (
+            "f32-dual-subsols", "f64-dual-subsols")),
+        "max_abs_err": max(r["instances"]["extended_best_abs_err"]
+                           for r in comps),
+        "ms": c["instances"]["kernel_ms"]["extended"][0],
+        "ms_tree": "the f64-dual d = 40 count tree",
+        "plain_ms": c["plain_ms"],
+        "bound_ms": c["bound_ms"],
+        "bound_by": c["bound_by"],
+        "library_ms": None,
+        "check": "pass",
+        "tolerance": "best and sub-solution distances to EXT_RTOL "
+                     f"({EXT_RTOL}) of the plain version's, count mode's "
+                     "nodes 1% in total and 2% per level above 200, the "
+                     "solution count equal",
+    }
 
 
 def f64_instance_numbers(by_mode, svp_recs, build_rec, replay) -> dict:
@@ -4001,23 +4406,28 @@ def main(mesh_only: bool = False, variants_only: bool = False) -> int:
 
 def all_phases(device, card, legs, build_rec) -> int:
     """Phases 2-8 (phase 8's host-only legs already running; `legs`
-    takes its card legs too, SD-BKZ's after phase 2, the others after
-    phase 7, and HKZ's repeat leg once HKZ's card leg has reduced) and
-    the last two lines."""
+    takes its card legs too, SD-BKZ's once phase 2's kernels have run,
+    the others after phase 7, and HKZ's repeat leg once HKZ's card leg
+    has reduced) and the last two lines."""
     from fplll_tpu_torch.enum import kernels
 
     # -- phase 2: kernel against plain version -----------------------------
     t0 = time.perf_counter()
-    forms, max_err, timing, grouped_plain = phase_kernel_checks(device)
-    ext_recs = phase_extended_checks(device)
+    forms, plain_checks, timing, grouped_plain = phase_kernel_checks(device)
+    ext_recs, ext_checks = phase_extended_checks(device)
+    log(f"phase 2's kernel runs done in {time.perf_counter() - t0:.1f} s")
+    # phase 8's longest leg, beside phase 2's plain-version checks and
+    # phases 3-7 (VARIANT_RUNS' comment)
+    start_card_legs(legs, ("sd-bkz",))
+    max_err = max(check() for check in plain_checks)
+    for check in ext_checks:
+        check()
     log("phase-2 walks " + json.dumps({
         f"{r['form']} {r['mode']}": {k: r[k] for k in (
             "kernel_ms", "donations", "busy_share", "longest_item_walk",
             "longest_walker_walk", "barren_skips")}
         for r in forms + ext_recs}))
     log(f"phase 2 done in {time.perf_counter() - t0:.1f} s")
-    # phase 8's longest leg, beside phases 3-7 (VARIANT_RUNS' comment)
-    start_card_legs(legs, ("sd-bkz",))
 
     # -- phase 3: the main path ----------------------------------------------
     t0 = time.perf_counter()
@@ -4068,8 +4478,17 @@ def all_phases(device, card, legs, build_rec) -> int:
     log(f"hkz-replay ({time.perf_counter() - t1:.1f} s) " +
         json.dumps(replay))
     var_recs = phase_variants(legs, svp_recs[0]["norm_host"])
+    # SD-BKZ's f32-dual launches again on both f32 dual instances, once
+    # its card leg (the last to end) has ended
+    t1 = time.perf_counter()
+    dual_replay = replay_launches(
+        load_launches(var_recs[0]["card"]["dual_launches_file"]), device,
+        "dual")
+    log(f"sd-bkz-dual-replay ({time.perf_counter() - t1:.1f} s) " +
+        json.dumps(dual_replay))
     log(f"phase 8 done in {time.perf_counter() - t0:.1f} s (the host-only "
-        "legs ran beside phases 2-7, the SD-BKZ card leg beside phases 3-7, "
+        "legs ran beside phases 2-7, the SD-BKZ card leg beside phase 2's "
+        "plain-version checks and phases 3-7, "
         "phase 2's grouped plain check beside the card legs and HKZ's "
         "repeat leg, the HKZ replay beside the SD-BKZ and slide card legs)")
     variant_counts = {}
@@ -4135,13 +4554,15 @@ def all_phases(device, card, legs, build_rec) -> int:
             "longest_walker_walk", "longest_item_walk", "busy_share",
             "donations", "barren_skips")},
     }] + extended_entries(ext_recs, svp_recs, path_counts, build_rec,
-                          replay) + [pruner_entry(surf)]
+                          replay, dual_replay) + [pruner_entry(surf)]
     for e in entries:
-        # the kernels' times come from phase 2, the gradient kernel's
-        # from phase 6 (VARIANT_RUNS' comment)
-        e["measured_beside"] = ("phase 8's three host-only legs: "
-                                "single-thread CPU processes that do not "
-                                "see the card")
+        # the kernels' times come from phase 2's kernel runs, the plain
+        # versions' from its checks, the gradient kernel's from phase 6
+        # (VARIANT_RUNS' comment)
+        e["measured_beside"] = (
+            "phase 8's three host-only legs: single-thread CPU processes "
+            "that do not see the card; plain_ms also beside phase 8's "
+            "SD-BKZ card leg")
     entries[-1]["measured_beside"] += (
         "; and phase 8's SD-BKZ card leg, whose card searches took "
         f"{var_recs[0]['card']['card_search_s']:.2f} s of its "

@@ -14,20 +14,32 @@
  *     _chunk_call form; the lane-tile split that VMEM forced on the TPU
  *     has no counterpart here.
  *
- * The same body, templated on the element type, also replaces the JAX
- * package's XLA-jitted tree of the proved solvers (tpu.py:_make_step /
- * _enum_run in f64, with the dual recurrence and per-level sub-solutions):
- * enum_chunk_f64_kernel<M, W>, the primal f64 walk (every unpruned or
- * certified search: HKZ's windows, the proved SVP/CVP, unpruned
- * FastEvaluator trees), and enum_chunk_ext_kernel<T, M, W>, T float or
- * double, with dual and findsubsols as runtime flags. Under dual a
- * descend subtracts alpha_k = x_k - c_k instead of x_k, and an ascend
- * restores it with the parent's x and center. With findsubsols each
- * problem keeps one record per level (the passing node with the smallest
- * nonzero partial distance, its coordinates from that level up and its
- * root), lowered under a per-(problem, level) lock; level 0's candidate
- * comes out of the absorbed leaf range. The primal instances, f32 and
- * f64, do not compile the extended walk.
+ * The same body, templated on the element type and on the walk it
+ * compiles (EnumWalk), also replaces the JAX package's XLA-jitted tree of
+ * the proved solvers (tpu.py:_make_step / _enum_run in f64, with the
+ * dual recurrence and per-level sub-solutions), one instance per form:
+ *   - enum_chunk_f64_kernel<M, W>, the primal f64 walk (every unpruned or
+ *     certified search: HKZ's windows, the proved SVP/CVP, unpruned
+ *     FastEvaluator trees);
+ *   - enum_chunk_dual_kernel<T, M, W>, T float or double, the dual walk
+ *     (the f32-dual windows of SD-BKZ and slide, the f64 dual SVP): a
+ *     descend subtracts alpha_k = x_k - c_k instead of x_k, and an ascend
+ *     restores it with the parent's x and center;
+ *   - enum_chunk_subsols_kernel<T, M, W>, the primal walk with the
+ *     sub-solution records (find_subsols): each problem keeps one record
+ *     per level (the passing node with the smallest nonzero partial
+ *     distance, its coordinates from that level up and its root), lowered
+ *     under a per-(problem, level) lock; level 0's candidate comes out of
+ *     the absorbed leaf range;
+ *   - enum_chunk_ext_kernel<T, M, W>, the extended walk, with dual and
+ *     findsubsols as runtime flags and no lookahead: the two combined
+ *     forms (dual with sub-solutions, which no path of the port
+ *     launches) and whatever a caller sends there by name
+ *     (EnumParams.ext), to compare it with the instances above.
+ * Each instance compiles only the state of its walk: no sub-solution
+ * record outside the sub-solution walk, no dual subtraction outside the
+ * dual one. All but the extended instance have the barren-descend
+ * lookahead.
  *
  * What it computes (the contract of the JAX package's tpu._make_step /
  * _enum_run): each walker pops a subtree root with atomicAdd
@@ -43,14 +55,17 @@
  * the queue.
  *
  * The two other parts of the TPU kernel's body:
- *   - the barren-descend lookahead (pallas_kernel.py:349-366), in the
- *     primal instances (f32 and f64), as on the TPU: a passing node above
- *     level 1 computes its nearest child's center and first x (the
+ *   - the barren-descend lookahead (pallas_kernel.py:349-366), in every
+ *     instance but the extended one, as on the TPU: a passing node above
+ *     level 1 computes its nearest child's center (w_k mu[k][k-1]
+ *     subtracted, w_k = x_k, or alpha_k under dual) and first x (the
  *     child's own first bound test); where that fails, the node steps to
  *     its next sibling in the same iteration instead of descending, which
  *     skips the descend's subtract and the ascend's restore of the center
- *     sums below it (barren_skips counts them). The plain version's
- *     "single", "grouped" and "f64" forms do the same;
+ *     sums below it (barren_skips counts them). A skipped child would
+ *     have offered no sub-solution record: it fails its own first bound
+ *     test. The plain version's forms do the same, the combined ones
+ *     excepted;
  *   - top-sibling donation (pallas_kernel.py:546-674), in every instance:
  *     once every queue has drained, an idle walker takes a ticket (the
  *     request queue) and waits in its ticket's mailbox; a busy walker that
@@ -148,26 +163,36 @@
  * slower. No stack frame is needed: the walker state is registers only
  * (`-Xptxas -v`, printed by chip_smoke.py phase 1).
  *
- * The f64 primal instance. Its time is bounded the same way: the longest
- * work item's walk (root_steps) times the time of one step, which here is
- * a chain of dependent f64 operations (about 4.2 ns each on an H100, by
- * chip_smoke.py's FMA probe) against 4 cycles for f32. A chain that long
- * is hidden only by other walkers' chains, so the design is about walkers
- * per SM. The extended instance asks ptxas for one block per SM and
- * compiles the dual recurrence and the sub-solution records into every
- * tree: on an f64 primal tree, 142 registers at M = 64, one block of 8
- * walkers per SM, 2 warps per SM sub-partition, 44% of the register file
- * idle. This instance compiles neither (EXT = false), so the plain f64
- * tree also gets the barren-descend lookahead, and its launch bounds ask
- * for ENUM_F64_MIN_BLOCKS blocks per SM at M <= 64 (at most 128 registers
- * a thread at two blocks; chip_smoke.py phase 1 asserts no stack and no
- * spills and prints the blocks per SM the occupancy calculator gives).
- * Two it is: 128 registers at M = 64, 16 warps per SM; three capped the
- * instance at 80 registers with a stack frame and spills
- * (tools/torch_f64_instance_ab.py builds and times each). Shared memory
- * does not limit that: one f64 problem takes 9 KB at M = 32 and 34 KB at
- * M = 64; at M = 128 it takes 134 KB, so that bucket runs one block per
- * SM whatever the registers, and its launch bounds ask for one.
+ * The f64, dual and sub-solution instances. Their time is bounded the
+ * same way: the longest work item's walk (root_steps) times the time of
+ * one step, which in f64 is a chain of dependent f64 operations (about
+ * 4.2 ns each on an H100, by chip_smoke.py's FMA probe) against 4 cycles
+ * for f32. A chain that long is hidden only by other walkers' chains, so
+ * the design is about walkers per SM. The extended instance asks ptxas
+ * for one block per SM and compiles the dual recurrence and the
+ * sub-solution records into every tree: 142 registers at M = 64 in f64,
+ * one block of 8 walkers per SM, 2 warps per SM sub-partition, 44% of
+ * the register file idle. Each of the other instances compiles only its
+ * walk's state and has the lookahead, and its launch bounds ask ptxas
+ * for the most blocks per SM it meets with no stack frame and no spills
+ * (chip_smoke.py phase 1 asserts none and prints the blocks per SM the
+ * occupancy calculator gives; tools/torch_f64_instance_ab.py and
+ * tools/torch_walk_instance_ab.py build the source at other bounds and
+ * time each), as measured on an H100 with nvcc 12.9:
+ *   - f64 primal and f64 dual: ENUM_F64_MIN_BLOCKS, two, at M <= 64
+ *     (124 / 128 registers at M = 32 / 64, 16 warps per SM); three capped
+ *     the primal instance at 80 registers with a stack frame and spills;
+ *   - f64 sub-solutions: ENUM_SUBSOLS_F64_MIN_BLOCKS, two, at M <= 64
+ *     (124 / 128; one block took 144 at M = 64; three spilled);
+ *   - f32 dual: no minimum, as the f32 primal instances (64 / 80 / 100
+ *     registers, 4 / 3 / 2 blocks at M = 32 / 64 / 128; a minimum of one
+ *     or two gave 87-111 registers, three spilled at M = 128);
+ *   - f32 sub-solutions: ENUM_SUBSOLS_F32_MIN_BLOCKS, three, at M <= 64
+ *     (80 registers), two at M = 128 (111); four spilled.
+ * Shared memory does not limit that: one f64 problem takes 9 KB at
+ * M = 32 and 34 KB at M = 64; at M = 128 it takes 134 KB, so that bucket
+ * runs one f64 block per SM whatever the registers, and its launch
+ * bounds ask for one.
  */
 
 #include <cuda_runtime.h>
@@ -184,8 +209,28 @@
 #define ENUM_F64_MIN_BLOCKS 2 /* resident blocks per SM the f64 primal
                                  instance asks ptxas for at M <= 64 */
 #endif
+#ifndef ENUM_DUAL_F32_MIN_BLOCKS
+#define ENUM_DUAL_F32_MIN_BLOCKS 0 /* the f32 dual instance's (0: as the
+                                      f32 primal instances, none) */
+#endif
+#ifndef ENUM_SUBSOLS_F64_MIN_BLOCKS
+#define ENUM_SUBSOLS_F64_MIN_BLOCKS 2 /* the f64 sub-solution instance's
+                                         at M <= 64 */
+#endif
+#ifndef ENUM_SUBSOLS_F32_MIN_BLOCKS
+#define ENUM_SUBSOLS_F32_MIN_BLOCKS 3 /* the f32 sub-solution instance's
+                                         at M <= 64 (2 at M = 128) */
+#endif
 #define ENUM_DONE (-1)        /* a mailbox's sequence word once the launch
                                  has no work left to donate */
+
+/* the walk an instance compiles (enum_chunk_walk's WALK) */
+enum EnumWalk {
+  ENUM_PRIMAL = 0,  /* primal recurrence, with the lookahead */
+  ENUM_DUAL = 1,    /* dual recurrence, with the lookahead */
+  ENUM_SUBSOLS = 2, /* primal, sub-solution records, with the lookahead */
+  ENUM_EXT = 3      /* dual and records as runtime flags, no lookahead */
+};
 
 /* Element type T of the floating-point arrays: float, or double when dbl
    is set. Pointers to them are untyped here and cast in the kernel. */
@@ -241,10 +286,10 @@ struct EnumParams {
   long long max_steps;
   int G, G_real, m, nfixp, R, walkers, is_svp, count_mode;
   int dbl, dual, findsubsols;
-  int ext;               /* run the extended instance although dual and
-                            findsubsols are off (a comparison of the two f64
-                            instances; the launcher takes it wherever dual
-                            or findsubsols is set) */
+  int ext;               /* run the extended instance with dual and
+                            findsubsols as given (a comparison with the
+                            instance of the form; the launcher takes it
+                            for dual with sub-solutions in any case) */
 };
 
 /* launch geometry of one instance, as the launcher chooses it */
@@ -432,18 +477,18 @@ __device__ __forceinline__ void release_mailboxes(const EnumParams &P, int t,
 
 /* The walk of one launch. T: the element type. SMEM: mu, rdiag and
    prune of the real problems sit in shared memory (enum_smem_bytes > 0),
-   else they are read from global memory. EXT: the extended walk, with the
-   dual recurrence and the sub-solution records as runtime flags (P.dual,
-   P.findsubsols); the primal trees (f32 of BKZ, f64 of the exact
-   searches) run the instances without it, and only they have the
-   barren-descend lookahead.
+   else they are read from global memory. WALK: what the instance
+   compiles (EnumWalk): the primal recurrence, the dual one, the primal
+   one with the sub-solution records, each with the barren-descend
+   lookahead, or the extended walk, with the dual recurrence and the
+   records as runtime flags (P.dual, P.findsubsols) and no lookahead.
 
    A walker's work items are roots popped from the queues and, once every
    queue has drained, top-level sibling ranges donated by busy walkers
    (see the header). Its registers cover levels k..top-1 of the item:
    top = m_real for a root, jstar + 1 for a range donated at level jstar,
    and a donor lowers its own top to the level it gave away. */
-template <typename T, int M, int W, bool SMEM, bool EXT>
+template <typename T, int M, int W, bool SMEM, int WALK>
 __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
   static_assert(M % W == 0 && W >= 8 && W <= 32 && (W & (W - 1)) == 0,
                 "walker width: 8, 16 or 32 threads");
@@ -455,7 +500,10 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
               : ((1u << W) - 1u) << (threadIdx.x & 31 & ~(W - 1));
   const int walker = (int)((blockIdx.x * blockDim.x + threadIdx.x) / W);
   const bool svp = P.is_svp != 0, count_mode = P.count_mode != 0;
-  const bool dual = EXT && P.dual != 0, subsols = EXT && P.findsubsols != 0;
+  constexpr bool EXT = WALK == ENUM_EXT;
+  constexpr bool RECORDS = WALK == ENUM_SUBSOLS || EXT;
+  const bool dual = WALK == ENUM_DUAL || (EXT && P.dual != 0);
+  const bool subsols = WALK == ENUM_SUBSOLS || (EXT && P.findsubsols != 0);
   const int pf = enum_problem_floats(m);
 
   /* s_mu[k * ld + j] = mut[j][k] for j < k: the row a descend from level
@@ -769,7 +817,7 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
       const T nd = f_add(pdk, f_mul(f_mul(alpha, alpha), rk));
       if (nd <= f_mul(pk, A)) {
         put(cnt, t == (k & (W - 1)), k / W, pick(cnt, k / W) + 1ull);
-        if constexpr (EXT)
+        if constexpr (RECORDS)
           if (subsols && nd > T(0))
             offer_subsol<T, S, W>(P, g, t, gmask, ridx, k, nd, xk, xk, x);
         /* what a descend from level k subtracts: x_k, or alpha_k */
@@ -798,7 +846,7 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
             const T xb = trivial ? T(1) : f_min(f_max(cround(c0), lo), hi);
             const T ab = f_sub(xb, c0);
             const T db = f_add(nd, f_mul(f_mul(ab, ab), r0));
-            if constexpr (EXT) if (subsols) {
+            if constexpr (RECORDS) if (subsols) {
               /* level 0's record: the passing leaf with the smallest
                  nonzero distance; past a leaf on its center, the
                  nearer neighbour (on a tie, the one the zig-zag
@@ -843,10 +891,12 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
         } else {
           /* the child's center: the owner's cs[k-1] after a descend */
           const T cc = f_sub(cn, f_mul(wk, mkn));
-          /* the barren-descend lookahead (primal): the child's step
-             would test its nearest integer first; where that fails the
-             child's bound, step to the next sibling now, skipping the
-             descend and its restore */
+          /* the barren-descend lookahead (every walk but the extended
+             one): the child's step would test its nearest integer
+             first; where that fails the child's bound, step to the next
+             sibling now, skipping the descend and its restore. A skipped
+             child offers no sub-solution record: it fails its own first
+             bound test */
           bool skip = false;
           if constexpr (!EXT) {
             T xf = cround(cc);
@@ -924,7 +974,7 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
 /* the f32 primal instances of BKZ-2.0 */
 template <int M, int W, bool SMEM>
 __global__ void __launch_bounds__(ENUM_THREADS) enum_chunk_kernel(EnumParams P) {
-  enum_chunk_walk<float, M, W, SMEM, false>(P);
+  enum_chunk_walk<float, M, W, SMEM, ENUM_PRIMAL>(P);
 }
 
 /* the f64 primal walk (the plain f64 form), one problem in shared
@@ -935,33 +985,68 @@ template <int M, int W>
 __global__ void __launch_bounds__(ENUM_THREADS,
                                   M <= 64 ? ENUM_F64_MIN_BLOCKS : 1)
 enum_chunk_f64_kernel(EnumParams P) {
-  enum_chunk_walk<double, M, W, true, false>(P);
+  enum_chunk_walk<double, M, W, true, ENUM_PRIMAL>(P);
+}
+
+/* resident blocks per SM that an instance of the walk over T at height
+   bucket M asks ptxas for (0: none asked, as the f32 primal instances) */
+template <typename T, int M>
+constexpr int enum_dual_min_blocks() {
+  return sizeof(T) == 8 ? (M <= 64 ? ENUM_F64_MIN_BLOCKS : 1)
+                        : ENUM_DUAL_F32_MIN_BLOCKS;
+}
+template <typename T, int M>
+constexpr int enum_subsols_min_blocks() {
+  return sizeof(T) == 8 ? (M <= 64 ? ENUM_SUBSOLS_F64_MIN_BLOCKS : 1)
+                        : (M <= 64 ? ENUM_SUBSOLS_F32_MIN_BLOCKS : 2);
+}
+
+/* the dual walk (the f32-dual and f64-dual forms), one problem in shared
+   memory, with the barren-descend lookahead */
+template <typename T, int M, int W>
+__global__ void __launch_bounds__(ENUM_THREADS,
+                                  (enum_dual_min_blocks<T, M>()))
+enum_chunk_dual_kernel(EnumParams P) {
+  enum_chunk_walk<T, M, W, true, ENUM_DUAL>(P);
+}
+
+/* the primal walk with the sub-solution records (the f32-subsols and
+   f64-subsols forms), one problem in shared memory, with the
+   barren-descend lookahead */
+template <typename T, int M, int W>
+__global__ void __launch_bounds__(ENUM_THREADS,
+                                  (enum_subsols_min_blocks<T, M>()))
+enum_chunk_subsols_kernel(EnumParams P) {
+  enum_chunk_walk<T, M, W, true, ENUM_SUBSOLS>(P);
 }
 
 /* the extended walk, one problem in shared memory; at least one block
    per SM, so that ptxas keeps its larger state in registers (with the
-   primal instances' bounds the float M = 128 instance spilled) */
+   primal instances' bounds the float M = 128 instance spilled). It runs
+   what EnumParams.ext names (a comparison with the instances above) and
+   the two combined forms, dual with sub-solutions, which no path of the
+   port launches */
 template <typename T, int M, int W>
 __global__ void __launch_bounds__(ENUM_THREADS, 1)
 enum_chunk_ext_kernel(EnumParams P) {
-  enum_chunk_walk<T, M, W, true, true>(P);
+  enum_chunk_walk<T, M, W, true, ENUM_EXT>(P);
 }
 
 typedef void (*EnumKernel)(EnumParams);
 
-/* whether a launch runs the extended walk: dual or sub-solutions, or a
-   caller that names the extended instance (P.ext) */
-__host__ __device__ inline int enum_wants_ext(const EnumParams &P) {
-  return P.ext || P.dual || P.findsubsols;
+/* the walk of a launch (EnumWalk): the extended one where the caller
+   names it (P.ext) or where it is dual with sub-solutions */
+__host__ __device__ inline int enum_walk_of(const EnumParams &P) {
+  if (P.ext || (P.dual && P.findsubsols)) return ENUM_EXT;
+  return P.dual ? ENUM_DUAL : P.findsubsols ? ENUM_SUBSOLS : ENUM_PRIMAL;
 }
 
-/* the instance for a launch over G_real problems of height m (nullptr if
-   none): the f32 primal instances of BKZ; for f64 (dbl) without the
-   extended walk, the f64 primal instance; for the extended walk (ext:
-   dual, sub-solutions, or asked for by name), the extended instance of
-   the element type. The f64 and extended instances hold one problem in
-   shared memory. */
-static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
+/* the instance for a launch over G_real problems of height m of element
+   type double (dbl) or float, of walk `walk` (nullptr if none): the f32
+   primal instances of BKZ; the f64 primal instance; the dual, the
+   sub-solution and the extended instances of the element type. All but
+   the f32 primal instances hold one problem in shared memory. */
+static EnumKernel enum_instance(int m, int G_real, int dbl, int walk) {
 #define ENUM_INSTANCES(MM) \
   {enum_chunk_kernel<MM, ENUM_WIDTH, false>, \
    enum_chunk_kernel<MM, ENUM_WIDTH, true>}
@@ -972,18 +1057,24 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
       enum_chunk_f64_kernel<32, ENUM_WIDTH>,
       enum_chunk_f64_kernel<64, ENUM_WIDTH>,
       enum_chunk_f64_kernel<128, ENUM_WIDTH>};
-#define ENUM_EXT_INSTANCES(TT) \
-  {enum_chunk_ext_kernel<TT, 32, ENUM_WIDTH>, \
-   enum_chunk_ext_kernel<TT, 64, ENUM_WIDTH>, \
-   enum_chunk_ext_kernel<TT, 128, ENUM_WIDTH>}
-  static const EnumKernel ext_table[2][3] = {ENUM_EXT_INSTANCES(float),
-                                             ENUM_EXT_INSTANCES(double)};
-#undef ENUM_EXT_INSTANCES
+#define ENUM_WALK_INSTANCES(KERNEL, TT) \
+  {KERNEL<TT, 32, ENUM_WIDTH>, KERNEL<TT, 64, ENUM_WIDTH>, \
+   KERNEL<TT, 128, ENUM_WIDTH>}
+#define ENUM_WALK_TABLE(KERNEL) \
+  {ENUM_WALK_INSTANCES(KERNEL, float), ENUM_WALK_INSTANCES(KERNEL, double)}
+  static const EnumKernel walk_table[3][2][3] = {
+      ENUM_WALK_TABLE(enum_chunk_dual_kernel),
+      ENUM_WALK_TABLE(enum_chunk_subsols_kernel),
+      ENUM_WALK_TABLE(enum_chunk_ext_kernel)};
+#undef ENUM_WALK_TABLE
+#undef ENUM_WALK_INSTANCES
   const int b = m <= 32 ? 0 : m <= 64 ? 1 : 2;
   if (m < 2 || m > ENUM_MAXM || G_real < 1) return nullptr;
-  if (dbl || ext) {
+  if (walk < ENUM_PRIMAL || walk > ENUM_EXT) return nullptr;
+  if (dbl || walk != ENUM_PRIMAL) {
     if (G_real != 1 || enum_smem_bytes(m, 1, dbl ? 8 : 4) == 0) return nullptr;
-    return dbl && !ext ? f64_table[b] : ext_table[dbl ? 1 : 0][b];
+    if (walk == ENUM_PRIMAL) return f64_table[b];
+    return walk_table[walk - 1][dbl ? 1 : 0][b];
   }
   return table[b][enum_smem_bytes(m, G_real) > 0];
 }
@@ -995,13 +1086,13 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int ext) {
 static int enum_bucket(int m) { return m <= 32 ? 32 : m <= 64 ? 64 : 128; }
 
 /* The geometry of a launch over problems of height m with G_real real
-   problems, of element type double (dbl) or float, on the extended
-   instance (ext) or not: grid 0 means blocks per SM (from the occupancy of the
+   problems, of element type double (dbl) or float, of walk `walk`
+   (EnumWalk): grid 0 means blocks per SM (from the occupancy of the
    instance with its dynamic shared memory) times the SMs of the current
    device. */
-extern "C" int enum_chunk_geometry(int m, int G_real, int dbl, int ext,
+extern "C" int enum_chunk_geometry(int m, int G_real, int dbl, int walk,
                                    int grid, EnumGeometry *out) {
-  const EnumKernel fn = enum_instance(m, G_real, dbl, ext);
+  const EnumKernel fn = enum_instance(m, G_real, dbl, walk);
   if (!fn || G_real < 1 || grid < 0) return (int)cudaErrorInvalidValue;
   const int smem = enum_smem_bytes(m, G_real, dbl ? 8 : 4);
   cudaError_t e = cudaFuncSetAttribute(
@@ -1031,14 +1122,14 @@ extern "C" int enum_chunk_launch(const EnumParams *hp, int grid,
   EnumParams P = *hp;
   if (P.G < 1 || P.G_real < 1 || P.G_real > P.G || P.R < 1 || P.nfixp < 0)
     return (int)cudaErrorInvalidValue;
-  const int ext = enum_wants_ext(P);
+  const int walk = enum_walk_of(P);
   EnumGeometry geo;
-  const int e = enum_chunk_geometry(P.m, P.G_real, P.dbl, ext, grid, &geo);
+  const int e = enum_chunk_geometry(P.m, P.G_real, P.dbl, walk, grid, &geo);
   if (e != 0) return e;
   if (P.walkers != geo.walkers) return (int)cudaErrorInvalidValue;
   void *args[] = {&P};
   const cudaError_t le = cudaLaunchKernel(
-      (const void *)enum_instance(P.m, P.G_real, P.dbl, ext), dim3(geo.grid),
+      (const void *)enum_instance(P.m, P.G_real, P.dbl, walk), dim3(geo.grid),
       dim3(geo.threads), args, (size_t)geo.smem, (cudaStream_t)stream);
   if (le != cudaSuccess) return (int)le;
   return (int)cudaGetLastError();

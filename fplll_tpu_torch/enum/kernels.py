@@ -20,9 +20,10 @@ A wrapper given CUDA tensors launches the kernel or raises; given CPU
 tensors it runs the plain PyTorch version, a vectorized port of the
 lockstep step of `tpu._make_step`/`_enum_run` (SVP/CVP, count and search
 mode; enum_run also in f64, with the dual recurrence and with per-level
-sub-solutions), with the Pallas kernel's barren-descend lookahead in its
-primal forms ("single", "grouped", "f64") as in the kernel's primal
-instances. Nothing on the card's path calls the plain version.
+sub-solutions), with the Pallas kernel's barren-descend lookahead in
+every form that the kernel runs with it (all but the two combined forms,
+dual with sub-solutions). Nothing on the card's path calls the plain
+version.
 
 Once the root queues have drained, the kernel's idle walkers take the
 top-level sibling ranges of busy ones (the Pallas kernel's top-sibling
@@ -41,16 +42,19 @@ is the plain version's lane count. The per-walker outputs hold one slot
 per (problem, walker), sized from the geometry the launcher reports.
 
 Instances: "single" and "grouped" launch ``enum_chunk_kernel`` (f32
-primal), "f64" ``enum_chunk_f64_kernel`` (f64 primal), the dual and
-sub-solution forms ``enum_chunk_ext_kernel`` of their element type.
-:func:`_enum_run_extended` runs an f64 primal tree on the extended
-instance instead, for the comparison of the two f64 instances; no path of
-the port calls it.
+primal), "f64" ``enum_chunk_f64_kernel`` (f64 primal), "f32-dual" and
+"f64-dual" ``enum_chunk_dual_kernel``, "f32-subsols" and "f64-subsols"
+``enum_chunk_subsols_kernel`` of their element type, each with the
+lookahead; the combined forms ("f32-dual-subsols", "f64-dual-subsols",
+which no path of the port launches) ``enum_chunk_ext_kernel``, the
+extended walk without it. :func:`_enum_run_extended` runs any tree of
+enum_run on the extended instance instead, for the comparison of the two
+designs; no path of the port calls it.
 
 Counts: ``LAUNCHES`` counts kernel launches per form (``FORMS``) and
 nothing else, ``PLAIN_RUNS`` the wrappers' runs of the plain version,
 ``GRIDS`` the launch geometries (grid, blocks per SM, SMs) per form,
-``EXTENDED_F64`` the comparison's launches and plain runs; node
+``EXTENDED`` the comparison's launches and plain runs per form; node
 counters are int64 (uint64 in the kernel), never f32.
 """
 
@@ -80,9 +84,14 @@ LAUNCHES: Dict[str, int] = {form: 0 for form in FORMS}
 PLAIN_RUNS: Dict[str, int] = {form: 0 for form in FORMS}
 # (grid, blocks per SM, SMs) of each launch geometry used, per form
 GRIDS: Dict[str, Set[Tuple[int, int, int]]] = {form: set() for form in FORMS}
-# f64 primal trees on the extended instance (_enum_run_extended): its
-# launches, and runs of its plain version (the walk without the lookahead)
-EXTENDED_F64: Dict[str, int] = {"launches": 0, "plain_runs": 0}
+# trees sent to the extended instance by name (_enum_run_extended): its
+# launches, and runs of its plain version (the walk without the
+# lookahead), per form
+EXTENDED: Dict[str, Dict[str, int]] = {
+    "launches": {form: 0 for form in FORMS},
+    "plain_runs": {form: 0 for form in FORMS}}
+# the walks of the CUDA source (EnumWalk in csrc/enum_chunk.cu)
+WALK_PRIMAL, WALK_DUAL, WALK_SUBSOLS, WALK_EXT = 0, 1, 2, 3
 
 
 def _form(dtype, dual: bool, findsubsols: bool) -> str:
@@ -93,13 +102,24 @@ def _form(dtype, dual: bool, findsubsols: bool) -> str:
         ("-dual" if dual else "") + ("-subsols" if findsubsols else "")
 
 
+def _walk(dual: bool, findsubsols: bool, ext: bool = False) -> int:
+    """The walk a launch runs (enum_walk_of in the CUDA source): the
+    extended one where the caller names it or where the tree is dual with
+    sub-solutions."""
+    if ext or (dual and findsubsols):
+        return WALK_EXT
+    return WALK_DUAL if dual else WALK_SUBSOLS if findsubsols else \
+        WALK_PRIMAL
+
+
 def reset_launch_counts() -> None:
     for key in LAUNCHES:
         LAUNCHES[key] = 0
         PLAIN_RUNS[key] = 0
         GRIDS[key].clear()
-    for key in EXTENDED_F64:
-        EXTENDED_F64[key] = 0
+    for counts in EXTENDED.values():
+        for key in counts:
+            counts[key] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +199,7 @@ def _prepare(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m_real,
     kernel's parameter struct. `m_real_range` (least, largest m_real),
     when the caller knows it, spares the read of m_real from the
     device. `ext` runs the extended instance with dual and findsubsols
-    as given (both off: an f64 primal tree on the extended instance)."""
+    as given."""
     G, m, _ = mut.shape
     R, nfixp = roots_x.shape[1], roots_x.shape[2]
     dev, ft = mut.device, mut.dtype
@@ -265,17 +285,18 @@ def _raise(lib, rc: int, what: str) -> None:
                            lib.enum_chunk_error_string(rc).decode())
 
 
-def _geometry(m: int, G_real: int, dtype, ext: bool, grid: int = 0) -> dict:
-    """The launcher's geometry for (m, G_real, element type, instance,
-    grid) on the current CUDA device: grid 0 asks for blocks per SM times
-    SMs (the persistent grid); it also gives threads per block, the
-    walker width W, the height bucket M, blocks per SM, SMs, dynamic
-    shared memory and walkers (grid * threads / W). `ext`: the extended
-    instance (dual or sub-solutions, or asked for by name)."""
+def _geometry(m: int, G_real: int, dtype, walk: int, grid: int = 0) -> dict:
+    """The launcher's geometry for (m, G_real, element type, walk, grid)
+    on the current CUDA device: grid 0 asks for blocks per SM times SMs
+    (the persistent grid); it also gives threads per block, the walker
+    width W, the height bucket M, blocks per SM, SMs, dynamic shared
+    memory and walkers (grid * threads / W). `walk`: WALK_PRIMAL,
+    WALK_DUAL, WALK_SUBSOLS or WALK_EXT (the extended instance), as
+    _walk gives it."""
     lib = build_kernel()
     g = _EnumGeometry()
     _raise(lib, lib.enum_chunk_geometry(
-        m, G_real, int(dtype == torch.float64), int(ext), grid,
+        m, G_real, int(dtype == torch.float64), walk, grid,
         ctypes.byref(g)), "geometry")
     return {name: getattr(g, name) for name, _ in _EnumGeometry._fields_}
 
@@ -288,9 +309,9 @@ def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
     dev = args[0].device
     lib = build_kernel()
     with torch.cuda.device(dev):
-        ext = kw.get("ext", False) or kw.get("dual", False) or \
-            kw.get("findsubsols", False)
-        geo = _geometry(args[0].shape[-1], G_real, args[0].dtype, ext, grid)
+        walk = _walk(kw.get("dual", False), kw.get("findsubsols", False),
+                     kw.get("ext", False))
+        geo = _geometry(args[0].shape[-1], G_real, args[0].dtype, walk, grid)
         p, out = _prepare(*args, G_real=G_real, walkers=geo["walkers"], **kw)
         stream = torch.cuda.current_stream(dev).cuda_stream
         _raise(lib, lib.enum_chunk_launch(ctypes.byref(p), geo["grid"],
@@ -431,19 +452,18 @@ def enum_launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
 def _enum_run_extended(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
                        A0: float, *, dual: bool = False,
                        findsubsols: bool = False, **kw) -> dict:
-    """:func:`enum_run` of an f64 primal tree on the extended instance
-    (enum_chunk_ext_kernel<double> with dual and findsubsols off: no
-    lookahead, one block per SM at M = 64); on CPU tensors, the plain
-    walk without the lookahead. For the comparison of the two f64
-    instances (chip_smoke.py, the tests); no path of the port calls it,
-    and it counts in EXTENDED_F64, not in LAUNCHES."""
-    if mut.dtype != torch.float64 or dual or findsubsols:
-        raise ValueError("_enum_run_extended: f64 primal trees only")
+    """:func:`enum_run` of any tree on the extended instance
+    (enum_chunk_ext_kernel of its element type, dual and findsubsols as
+    given: no lookahead, one block per SM at M = 64 in f64); on CPU
+    tensors, the plain walk without the lookahead. For the comparison of
+    the extended instance with the instance of the form (chip_smoke.py,
+    the tests); no path of the port calls it, and it counts in EXTENDED,
+    not in LAUNCHES."""
     kw = dict(dict(max_steps=1 << 30, batch=1024, m_real=None, grid=0,
                    roots_a=None), **kw)
     return enum_collect(_launch(mut, rdiag, prune, mut_fix, cp0, roots_x,
-                                roots_pd, A0, dual=False, findsubsols=False,
-                                ext=True, **kw))
+                                roots_pd, A0, dual=dual,
+                                findsubsols=findsubsols, ext=True, **kw))
 
 
 def _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
@@ -451,12 +471,12 @@ def _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
             batch: int, m_real: Optional[int], grid: int, roots_a,
             dual: bool, findsubsols: bool, ext: bool) -> dict:
     """enum_launch on the instance of its form, or on the extended
-    instance (`ext`, counted in EXTENDED_F64)."""
+    instance (`ext`, counted in EXTENDED)."""
     dev = mut.device
     form = _form(mut.dtype, dual, findsubsols)
     if dev.type == "cpu":
         if ext:
-            EXTENDED_F64["plain_runs"] += 1
+            EXTENDED["plain_runs"][form] += 1
         else:
             PLAIN_RUNS[form] += 1
         return {"result": enum_run_plain(
@@ -477,7 +497,7 @@ def _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
         roots_a=None if roots_a is None else roots_a[None], dual=dual,
         findsubsols=findsubsols, m_real_range=(mr, mr), ext=ext)
     if ext:
-        EXTENDED_F64["launches"] += 1
+        EXTENDED["launches"][form] += 1
     else:
         LAUNCHES[form] += 1
         geo = out["geometry"]
@@ -563,10 +583,11 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     fresh root feeds the center sums (alpha for dual; None: roots_x);
     `roots_x` are the reported coordinates. `findsubsols` also returns
     the per-level best partials: subsol_dist (m,), subsol_vec (m, m) and
-    subsol_root (m, nfix). The primal forms ("single", "f64") skip barren
-    descends (barren_skips: how many), as the kernel's primal instances
-    do; `extended` walks an f64 primal tree without the lookahead, as
-    the extended instance does."""
+    subsol_root (m, nfix). Every form skips barren descends
+    (barren_skips: how many), as the kernel's instance of that form
+    does, but the combined forms (dual with sub-solutions), whose
+    instance is the extended one; `extended` walks any tree without the
+    lookahead, as the extended instance does."""
     dev, ft = mut.device, mut.dtype
     B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
     if R == 0:
@@ -629,14 +650,15 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     check_every = 1 if dev.type == "cpu" else 32
     steps = 0
     barren_skips = torch.zeros((), dtype=torch.int64, device=dev)
-    # the primal trees (the "single", "grouped" and "f64" forms) run the
-    # Pallas kernel's barren-descend lookahead, as the CUDA kernel's
-    # primal instances do. A barren node's sibling step takes the next
-    # lockstep step, the one its failing child's test would have taken,
-    # so that the steps at which a search's bound falls stay those of the
-    # walk without it (tpu._enum_run's): a lane marked `pending` tests
-    # nothing in that step, it only moves to the sibling
-    lookahead = not extended and not dual and not findsubsols
+    # every form but the combined ones runs the Pallas kernel's
+    # barren-descend lookahead, as the CUDA kernel's instance of that form
+    # does (the combined forms run on the extended instance, which has
+    # none). A barren node's sibling step takes the next lockstep step,
+    # the one its failing child's test would have taken, so that the
+    # steps at which a search's bound falls stay those of the walk
+    # without it (tpu._enum_run's): a lane marked `pending` tests nothing
+    # in that step, it only moves to the sibling
+    lookahead = not extended and not (dual and findsubsols)
     pending = torch.zeros(B, dtype=torch.bool, device=dev)
 
     while steps < max_steps:
@@ -692,9 +714,11 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
             # passing node above level 1 whose nearest child already fails
             # the child's bound steps to its next sibling instead of
             # descending, skipping the descend's subtract and the ascend's
-            # restore (the kernel's level 1 absorbs level 0 instead)
+            # restore (the kernel's level 1 absorbs level 0 instead). The
+            # child's center is what the descend would give it: w_k (x_k,
+            # or alpha_k under dual) times mu[k][k-1] subtracted
             kdn = torch.clamp(kc - 1, min=0)
-            c_child = cs.gather(1, kdn[:, None])[:, 0] - xk * mut_t[kc, kdn]
+            c_child = cs.gather(1, kdn[:, None])[:, 0] - wk * mut_t[kc, kdn]
             x_first = _cround(c_child)
             if is_svp:
                 x_first = torch.where(newdist == 0,

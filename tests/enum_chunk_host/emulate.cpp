@@ -43,13 +43,14 @@ void enum_body(void *arg) {
 extern "C" int enum_chunk_emulated_width() { return ENUM_WIDTH; }
 
 /* One emulated launch of the instance for P (its height, problem count,
-   element type and walk, or the extended instance where P.ext names it)
+   element type and walk, enum_walk_of: the extended instance where P.ext
+   names it)
    over `grid` blocks of `threads` threads; P.walkers must be grid *
    threads / ENUM_WIDTH, as the CUDA launcher requires. Returns 0, or one of fibers.h's codes. */
 extern "C" int enum_chunk_emulate(const EnumParams *hp, int grid,
                                   int threads) {
   EnumLaunch l{nullptr, *hp};
-  l.fn = enum_instance(l.P.m, l.P.G_real, l.P.dbl, enum_wants_ext(l.P));
+  l.fn = enum_instance(l.P.m, l.P.G_real, l.P.dbl, enum_walk_of(l.P));
   if (!l.fn || threads < ENUM_WIDTH || l.P.G_real < 1 ||
       l.P.G_real > l.P.G || l.P.walkers != grid * (threads / ENUM_WIDTH))
     return emu::kBadLaunch;

@@ -327,7 +327,7 @@ def test_f64_tree_on_both_f64_instances(card):
     pack = ext_packed(30, 1, torch.float64, False, card)
     mr = pack["m_real"]
     plain_args = {k: v for k, v in pack.items() if k != "m_real"}
-    before = (kernels.LAUNCHES["f64"], kernels.EXTENDED_F64["launches"])
+    before = (kernels.LAUNCHES["f64"], kernels.EXTENDED["launches"]["f64"])
     for count_mode in (True, False):
         kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
                   max_steps=1 << 30)
@@ -341,10 +341,69 @@ def test_f64_tree_on_both_f64_instances(card):
                 assert_counts(r, p["nodes"].cpu().numpy(), p["sol_count"],
                               mr)
         assert int(new["barren_skips"]) > 0 == int(old["barren_skips"])
-    assert (kernels.LAUNCHES["f64"], kernels.EXTENDED_F64["launches"]) == \
+    assert (kernels.LAUNCHES["f64"], kernels.EXTENDED["launches"]["f64"]) == \
         (before[0] + 2, before[1] + 2)
     assert new["geometry"]["blocks_per_sm"] >= 2
     assert new["geometry"]["walkers"] >= old["geometry"]["walkers"]
+
+
+# (dtype, dual, sub-solutions) of the forms whose instance is the dual or
+# the sub-solution walk
+WALK_FORMS = [(torch.float32, True, False), (torch.float64, True, False),
+              (torch.float32, False, True), (torch.float64, False, True)]
+
+
+@pytest.mark.parametrize("dtype,dual,findsubsols", WALK_FORMS,
+                         ids=[kernels._form(*f) for f in WALK_FORMS])
+def test_tree_on_both_designs(card, dtype, dual, findsubsols):
+    """The d = 30 tree of a dual or sub-solution form on its own instance
+    (enum_run: enum_chunk_dual_kernel or enum_chunk_subsols_kernel) and on
+    the extended one (kernels._enum_run_extended): each against the plain
+    version, count mode to the Pallas tolerance where it donated and the
+    sub-solution distances to 1e-12 in f64 (1e-6 in f32) there, both
+    searches' best distance the plain version's to that tolerance; only
+    the new instance skips barren descends; it runs no fewer walkers than
+    the extended one, and each launch counts where it should."""
+    pack = ext_packed(30, 1, dtype, dual, card)
+    mr = pack["m_real"]
+    plain_args = {k: v for k, v in pack.items() if k != "m_real"}
+    form = kernels._form(dtype, dual, findsubsols)
+    rtol = 1e-12 if dtype == torch.float64 else 1e-6
+    before = (kernels.LAUNCHES[form], kernels.EXTENDED["launches"][form])
+    for count_mode in (True, False):
+        kw = dict(is_svp=True, count_mode=count_mode, batch=1024,
+                  max_steps=1 << 30, dual=dual, findsubsols=findsubsols)
+        p = kernels.enum_run_plain(**plain_args, **kw)
+        new = kernels.enum_run(**pack, **kw)
+        old = kernels._enum_run_extended(**pack, **kw)
+        for r in (new, old):
+            b = float(p["best_dist"][0])
+            assert abs(float(r["best_dist"][0]) - b) <= rtol * b
+            if count_mode:
+                assert_counts(r, p["nodes"].cpu().numpy(), p["sol_count"],
+                              mr)
+                if findsubsols:
+                    np.testing.assert_allclose(
+                        r["subsol_dist"].cpu().numpy()[:mr],
+                        p["subsol_dist"].cpu().numpy()[:mr], rtol=rtol)
+        assert int(new["barren_skips"]) > 0 == int(old["barren_skips"])
+    assert (kernels.LAUNCHES[form], kernels.EXTENDED["launches"][form]) == \
+        (before[0] + 2, before[1] + 2)
+    assert new["geometry"]["walkers"] >= old["geometry"]["walkers"]
+
+
+@pytest.mark.parametrize("M", [32, 64, 128])
+def test_walk_instances_geometry(card, M):
+    """The launcher's persistent grid for the dual and sub-solution
+    instances of both element types and for the extended one at height
+    bucket M: at least one block per SM each, and at least two for the
+    f64 dual instance at M <= 64 (the f64 primal instance's bound)."""
+    for dtype in (torch.float32, torch.float64):
+        geo = {walk: kernels._geometry(M, 1, dtype, walk) for walk in (
+            kernels.WALK_DUAL, kernels.WALK_SUBSOLS, kernels.WALK_EXT)}
+        assert all(g["blocks_per_sm"] >= 1 for g in geo.values()), geo
+        if dtype == torch.float64 and M <= 64:
+            assert geo[kernels.WALK_DUAL]["blocks_per_sm"] >= 2, geo
 
 
 @pytest.mark.parametrize("d", [10, 20, 30])

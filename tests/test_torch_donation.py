@@ -2,11 +2,12 @@
 
 `csrc/enum_chunk.cu` hands the sibling ranges of a busy walker's top
 level to idle walkers once the root queues have drained (the Pallas
-kernel's top-sibling donation), and its primal instances (f32 and f64)
-skip a descend whose nearest child already fails (the barren-descend
-lookahead); the plain version's "single", "grouped" and "f64" forms run
-the same lookahead. The extended instance, which an f64 primal tree can
-still be sent to by name (`kernels._enum_run_extended`), has none. An adoptee re-derives the center sums below the donated level
+kernel's top-sibling donation), and its instances of the primal, dual
+and sub-solution walks (f32 and f64) skip a descend whose nearest child
+already fails (the barren-descend lookahead); the plain version's forms
+run the same lookahead. The extended instance, which runs the combined
+forms (dual with sub-solutions) and to which any tree can still be sent
+by name (`kernels._enum_run_extended`), has none. An adoptee re-derives the center sums below the donated level
 from its root, and a skipped descend skips an f32 subtract/restore round
 trip, so on realistic trees counts may move at ULP level (the tolerance
 of tests/test_pallas_parity.py). On the dyadic trees here every sum and
@@ -158,22 +159,36 @@ def tree_problem(d, seed, pruned=False, dual=False, radius=1.0, **kw):
 
 
 # (name, element type, dual, sub-solutions, extended instance by name):
-# every instance of the kernel, each form on the instance it launches, and
-# the f64 primal tree also on the extended instance ("f64-extended",
-# named through EnumParams.ext); the primal instances ("single", "f64")
-# have the lookahead
+# every instance of the kernel, each form on the instance it launches
+# (the combined form on the extended one), and the f64 primal, dual and
+# sub-solution trees also on the extended instance ("-extended", named
+# through EnumParams.ext); every instance but the extended one has the
+# lookahead
 INSTANCES = [("single", F32, False, False, False),
              ("f64", F64, False, False, False),
              ("f64-extended", F64, False, False, True),
              ("f32-dual", F32, True, False, False),
+             ("f32-dual-extended", F32, True, False, True),
              ("f64-dual", F64, True, False, False),
+             ("f64-dual-extended", F64, True, False, True),
              ("f32-subsols", F32, False, True, False),
-             ("f64-subsols", F64, False, True, False)]
+             ("f32-subsols-extended", F32, False, True, True),
+             ("f64-subsols", F64, False, True, False),
+             ("f64-subsols-extended", F64, False, True, True),
+             ("f64-dual-subsols", F64, True, True, False)]
 IDS = [i[0] for i in INSTANCES]
-PRIMAL_INSTANCES = ("single", "f64")
+
+
+def has_lookahead(dual, subsols, ext) -> bool:
+    """Whether the instance of a launch skips barren descends: all but the
+    extended one."""
+    return kernels._walk(dual, subsols, ext) != kernels.WALK_EXT
 # (d, seed, pruned, radius): the primal trees, about 1e4 nodes each; the
-# dual recurrence runs on the d = 20 tree of its own mu
-PRIMAL, DUAL = (24, 1, False, 1.0), (20, 1, False, 1.0)
+# dual recurrence runs on the d = 20 tree of its own mu, pruned (6,404
+# nodes): its integer mu keep every center an integer, so in an unpruned
+# tree a child's nearest integer always passes and no descend is barren,
+# while the pruned one's falling coefficients give the lookahead work
+PRIMAL, DUAL = (24, 1, False, 1.0), (20, 1, True, 1.25)
 
 
 def instance_tree(dual, **kw):
@@ -198,25 +213,25 @@ def full_counts(dual, dtype):
 def test_dyadic_trees_are_exact_in_f32(tree):
     """The premise of the exact tests: the plain version counts the same
     per-level nodes and solutions in f32 and in f64, both with the
-    lookahead (which skips barren descends here), and in f64 without it
+    lookahead (which skips barren descends here), and in both without it
     (the extended instance's walk), and so does the dual recurrence on
-    its tree, which has no lookahead."""
+    its tree."""
     for dual, prob in ((False, tree_problem(*tree[:3], False, tree[3])),
                        (True, instance_tree(True))):
-        a, b = run_plain(prob, F32, dual=dual), run_plain(prob, F64, dual=dual)
-        runs = [a, b] + ([] if dual else [run_plain(prob, F64, ext=True)])
+        runs = [run_plain(prob, dt, dual=dual, ext=ext)
+                for ext in (False, True) for dt in (F32, F64)]
         for r in runs[1:]:
-            np.testing.assert_array_equal(a["nodes"].numpy(),
+            np.testing.assert_array_equal(runs[0]["nodes"].numpy(),
                                           r["nodes"].numpy())
-            assert int(a["sol_count"]) == int(r["sol_count"])
+            assert int(runs[0]["sol_count"]) == int(r["sol_count"])
         assert [r["barren_skips"] > 0 for r in runs] == \
-            ([False, False] if dual else [True, True, False])
+            [True, True, False, False]
 
 
 @pytest.mark.parametrize("name,dtype,dual,subsols,ext", INSTANCES, ids=IDS)
 def test_plain_matches_jax_on_dyadic_trees(name, dtype, dual, subsols, ext):
-    """Every form of the plain version, and the f64 primal walk without
-    the lookahead, against tpu._enum_run (whose XLA walk has no
+    """Every form of the plain version, and each walk without the
+    lookahead, against tpu._enum_run (whose XLA walk has no
     lookahead) on the dyadic trees, count and search mode: per-level
     nodes, solution count, best distance and sub-solution distances
     exactly equal (a barren node's sibling step takes the lockstep step
@@ -237,7 +252,7 @@ def test_plain_matches_jax_on_dyadic_trees(name, dtype, dual, subsols, ext):
             mr = prob["m_real"]
             np.testing.assert_array_equal(pt["subsol_dist"].numpy()[:mr],
                                           jx["subsol_dist"][:mr])
-        assert (pt["barren_skips"] > 0) == (name in PRIMAL_INSTANCES)
+        assert (pt["barren_skips"] > 0) == has_lookahead(dual, subsols, ext)
 
 
 @pytest.mark.parametrize("single_root", [False, True],
@@ -252,9 +267,8 @@ def test_host_kernel_exact_on_dyadic_trees(host_build, name, dtype, dual,
     root queue and one root over the whole tree (where every walker but
     the first gets its work by donation): per-level nodes and solutions
     exactly the plain version's (and so tpu._enum_run's), and the
-    sub-solution distances too on the queue form; the primal instances
-    (f32 and f64) skip barren descends, the extended instance has no
-    lookahead."""
+    sub-solution distances too on the queue form; every instance but the
+    extended one skips barren descends."""
     prob = instance_tree(dual, single_root=single_root)
     out = run_host(host_build(width), prob, dtype, grid=grid, dual=dual,
                    findsubsols=subsols, ext=ext)
@@ -269,7 +283,8 @@ def test_host_kernel_exact_on_dyadic_trees(host_build, name, dtype, dual,
         ref = run_plain(prob, dtype, dual=dual, findsubsols=True)
         np.testing.assert_array_equal(out["ss_dist"].numpy()[0, :mr],
                                       ref["subsol_dist"].numpy()[:mr])
-    assert (int(out["barren_skips"]) > 0) == (name in PRIMAL_INSTANCES)
+    assert (int(out["barren_skips"]) > 0) == has_lookahead(dual, subsols,
+                                                            ext)
     assert int(out["walk_steps"]) >= int(out["steps"]) >= \
         int(out["root_steps"]) > 0
 

@@ -204,6 +204,16 @@ def cached_problem(d, pruned, radius, dual):
     return _PROBS[key]
 
 
+# the (dtype, dual, findsubsols, case) of test_plain_matches_jax_enum_run
+# whose best distance the lookahead moves by an ulp: a skipped descend
+# skips the subtract/restore round trip of the center sums, and under the
+# dual recurrence the subtracted alpha_k * mu is not exact, so
+# fl(fl(a - t) + t) == a does not hold everywhere. Their counts stay
+# exactly equal; the best distance is held to RECORD_RTOL, well inside the
+# Pallas tolerance (tests/test_pallas_parity.py:164-175, 1e-4)
+ULP_DRIFT_CASES = {(F32, True, False, 0), (F64, True, False, 1)}
+
+
 @pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
 @pytest.mark.parametrize("dual", [False, True], ids=["primal", "dual"])
 @pytest.mark.parametrize("findsubsols", [False, True],
@@ -211,18 +221,20 @@ def cached_problem(d, pruned, radius, dual):
 @pytest.mark.parametrize("case", [0, 1])
 def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
     """Count and search mode: exactly equal per-level node counts and
-    solution counts, bit-equal best distances, and in count mode the
-    sub-solution records equal per level to RECORD_RTOL (their vectors
-    may differ on ties), each valid to 1e-12 relative in f64 (1e-5 in
-    f32). The primal forms (f32 "single", "f64") skip barren descends
-    here, where tpu._enum_run descends and restores; on both cases, in
-    both dtypes, no skipped subtract/restore round trip moves a bound
-    test, so their counts are exact too, not only within the Pallas
-    tolerance (tests/test_pallas_parity.py:164-175) that such a round
-    trip could need."""
+    solution counts, bit-equal best distances (to RECORD_RTOL on the
+    ULP_DRIFT_CASES), and in count mode the sub-solution records equal per
+    level to RECORD_RTOL (their vectors may differ on ties), each valid to
+    1e-12 relative in f64 (1e-5 in f32). Every form but the combined one
+    (dual with sub-solutions, the extended instance's) skips barren
+    descends here, where tpu._enum_run descends and restores; no skipped
+    round trip moves a bound test in these cases, so their counts are
+    exact too, not only within the Pallas tolerance
+    (tests/test_pallas_parity.py:164-175) that such a round trip could
+    need."""
     prob = cached_problem(*PROBLEMS[case], dual)
     form = kernels._form(dtype, dual, findsubsols)
     runs = kernels.PLAIN_RUNS[form]
+    drift = (dtype, dual, findsubsols, case) in ULP_DRIFT_CASES
     for count_mode in (True, False):
         kw = dict(dual=dual, findsubsols=findsubsols, count_mode=count_mode)
         jx = run_jax(prob, dtype, **kw)
@@ -230,10 +242,11 @@ def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
         np.testing.assert_array_equal(pt["nodes"].numpy(),
                                       jx["nodes"].astype(np.int64))
         assert int(pt["sol_count"]) == int(jx["sol_count"].sum())
-        assert float(pt["best_dist"][0]) == float(jx["best_dist"].min())
+        pb, jb = float(pt["best_dist"][0]), float(jx["best_dist"].min())
+        assert pb == jb or (drift and abs(pb - jb) <= RECORD_RTOL[dtype] * jb)
         if count_mode and not PROBLEMS[case][1]:
             assert int(pt["sol_count"]) > 0
-        assert (pt["barren_skips"] > 0) == (not dual and not findsubsols)
+        assert (pt["barren_skips"] > 0) == (not (dual and findsubsols))
         if findsubsols:
             mr = prob["m_real"]
             if count_mode:
@@ -303,13 +316,16 @@ def ref_sols(prob, dtype, dual):
                          count_mode=True)["sol_count"])
 
 
-# (element type, dual, sub-solutions, extended instance by name): the f64
-# primal form (the f64 primal instance), the same tree on the extended
-# instance, and the extended forms
+# (element type, dual, sub-solutions, extended instance by name): each
+# form of the proved solvers on the instance it launches (the f64 primal,
+# dual and sub-solution instances; the combined form on the extended
+# one), and the same trees on the extended instance by name
 EXT_FORMS = [(F64, False, False, False), (F64, False, False, True),
-             (F64, True, False, False), (F64, False, True, False),
+             (F64, True, False, False), (F64, True, False, True),
+             (F64, False, True, False), (F64, False, True, True),
              (F64, True, True, False), (F32, True, False, False),
-             (F32, False, True, False)]
+             (F32, True, False, True), (F32, False, True, False),
+             (F32, False, True, True)]
 
 
 def ext_form_id(dtype, dual, findsubsols, ext):
@@ -328,10 +344,10 @@ def test_host_compiled_extended_instances_match_plain(
     record comes out of the absorbed leaf range), else counts to the
     Pallas kernel's tolerance and records to RECORD_RTOL. Search mode:
     the same best distance (unique here). The whole tree under one root
-    donates, with the same counts and best as the root queue. The f64
-    primal tree runs on the f64 primal instance, with the lookahead, and
-    by name on the extended instance, without it, each against its own
-    plain walk."""
+    donates, with the same counts and best as the root queue. Each form
+    runs on its own instance, with the lookahead (the combined form on
+    the extended instance, without it), and by name on the extended
+    instance, without it, each against its own plain walk."""
     from test_torch_enum_kernel import assert_counts
 
     prob = cached_problem(*EMU_PROBLEM, dual)
@@ -342,7 +358,7 @@ def test_host_compiled_extended_instances_match_plain(
         ref = run_plain(prob, dtype, ext=ext, **kw)
         out = run_host(lib, prob, dtype, grid=grid, ext=ext, **kw)
         assert (int(out["barren_skips"]) > 0) == \
-            (dtype == F64 and not (dual or findsubsols or ext))
+            (kernels._walk(dual, findsubsols, ext) != kernels.WALK_EXT)
         don = int(out["donations"])
         assert float(out["best_dist"][0]) == float(ref["best_dist"][0])
         if count_mode:
@@ -412,6 +428,12 @@ def window(d, seed, radius, dual):
     return mut, rdiag, A
 
 
+# the forms whose reported best distance the lookahead moves by an ulp
+# on test_enumerator_matches_jax_enumerator's tree (ULP_DRIFT_CASES'
+# reason); the coordinates and the counts stay equal
+ENUMERATOR_ULP_DRIFT = {"f64-dual"}
+
+
 @pytest.mark.parametrize("dtype,dual,findsubsols",
                          [(F64, False, False), (F64, True, False),
                           (F64, False, True), (F32, True, True)],
@@ -420,9 +442,10 @@ def window(d, seed, radius, dual):
 def test_enumerator_matches_jax_enumerator(dtype, dual, findsubsols,
                                            monkeypatch):
     """One d = 24 tree through both enumerators (root factor 1, 128
-    lanes): the same best coordinates and distance, the same per-level
-    nodes, and the same sub-solution distances (to RECORD_RTOL), device
-    levels and host-expanded levels alike."""
+    lanes): the same best coordinates and distance (to RECORD_RTOL in the
+    ENUMERATOR_ULP_DRIFT forms), the same per-level nodes, and the same
+    sub-solution distances (to RECORD_RTOL), device levels and
+    host-expanded levels alike."""
     monkeypatch.setenv("FPLLL_TPU_MESH", "0")
     d = 24
     mut, rdiag, A = window(d, 1, 1.3, dual)
@@ -442,7 +465,9 @@ def test_enumerator_matches_jax_enumerator(dtype, dual, findsubsols,
 
     assert not ev_t.empty()
     assert list(ev_t.begin()[1]) == list(ev_j.begin()[1])
-    assert ev_t.begin()[0] == ev_j.begin()[0]
+    bt, bj = ev_t.begin()[0], ev_j.begin()[0]
+    assert bt == bj or (form in ENUMERATOR_ULP_DRIFT and
+                        abs(bt - bj) <= RECORD_RTOL[dtype] * bj)
     np.testing.assert_array_equal(et.nodes, ej.nodes)
     if findsubsols:
         t_ss = [(dist, list(v)) for dist, v in ev_t.sub_solutions]

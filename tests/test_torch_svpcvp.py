@@ -276,3 +276,52 @@ def test_self_dual_bkz_tour_matches_jax(monkeypatch):
     assert bt.a.tolist() == bj.a.tolist()
     assert kt.nodes == kj.nodes > 0
     assert ft.is_lll_reduced(ft.MatGSO(bt.copy()), 0.99, 0.51)
+
+
+# (route, seed, d) of the proved CVP whose facade node counts both
+# packages report: resets on each package's device path (the crossover
+# forced to dimension 34, as test_proved_cvp_device_reset_matches_host
+# forces it) and on the host alone
+NODE_CASES = [("device", 21, 38), ("device", 25, 38), ("device", 30, 38),
+              ("host", 21, 38)]
+
+
+@pytest.mark.parametrize("route,seed,d", NODE_CASES,
+                         ids=[f"{r}-{s}-{d}" for r, s, d in NODE_CASES])
+def test_proved_cvp_facade_nodes_match_jax(monkeypatch, route, seed, d):
+    """The proved CVP's facade node counts (Enumeration.get_nodes(), in
+    total and per level) are the JAX package's, call for call, on the
+    device route and on the host alone, and both are negative: the
+    facade's DFS subtracts one node per level above its start before the
+    loop (enum/cpu.py's _loop, as fplll_tpu/enum/cpu.py and
+    fplll_tpu/native/enum_core.c do), and each reset below the top level
+    enumerates in a sub-enumeration that keeps its own nodes, so the top
+    level's loop counts none of them. The negative counts a run reports
+    are the reference's, not a fault of the port."""
+    import fplll_tpu.enum.api as jax_api
+    import fplll_tpu.enum.tpu as jax_tpu
+    import fplll_tpu_torch.enum.api as port_api
+    import fplll_tpu_torch.enum.device as port_device
+
+    low = 34 if route == "device" else 10_000
+    monkeypatch.setattr(jax_tpu, "_MIN_TPU_DIM", low)
+    monkeypatch.setattr(port_device, "_MIN_TPU_DIM", low)
+    counts = {"jax": [], "port": []}
+    for name, api in (("jax", jax_api), ("port", port_api)):
+        def spy(self, *a, _orig=api.Enumeration.enumerate, _name=name, **kw):
+            out = _orig(self, *a, **kw)
+            counts[_name].append((self.get_nodes(), [
+                self.get_nodes(level) for level in range(d)]))
+            return out
+        monkeypatch.setattr(api.Enumeration, "enumerate", spy)
+    fl.RandGen.init_with_seed(seed)
+    bj = fl.gen.gen_uniform(d, 10)
+    fl.lll_reduction(bj)
+    bt = basis_from_rows(bj.a)
+    sj, xj = fl.closest_vector(bj, [3] * d, method=CVPM_PROVED)
+    runs = dict(kernels.PLAIN_RUNS)
+    st, xt = ft.closest_vector(bt, [3] * d, method=CVPM_PROVED)
+    assert st == sj == 0 and xt == list(xj)
+    assert (kernels.PLAIN_RUNS["f64"] > runs["f64"]) == (route == "device")
+    assert counts["port"] == counts["jax"] and counts["port"]
+    assert all(total < 0 for total, _ in counts["port"])

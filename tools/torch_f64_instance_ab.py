@@ -19,7 +19,7 @@ counts with chip_smoke.compare_counts, searches against its best
 distance), with the longest work item's steps, the walkers, donations
 and barren-descend skips; and phase 5's proved SVP at d = 56 through
 shortest_vector (the kernel ms of its f64 launches, CUDA events,
-chip_smoke.F64Instance). One JSON line per build and round, then the
+chip_smoke.OnInstance). One JSON line per build and round, then the
 card's name and power limit.
 """
 
@@ -62,8 +62,10 @@ def main() -> int:
         inst = cs.ptxas_instances(log)
         print(json.dumps({
             "min_blocks": mb,
-            "ptxas": {f"{'extended' if k[4] else 'f64 primal'} M={k[1]}": v
-                      for k, v in sorted(inst.items()) if k[0] == "double"},
+            "ptxas": {f"{'f64 primal' if k[4] == 'primal' else k[4]} "
+                      f"M={k[1]}": v for k, v in sorted(inst.items())
+                      if k[0] == "double" and k[4] in ("primal",
+                                                       "extended")},
             "geometry": cs.f64_geometries()}), flush=True)
 
     pack, _ = cs.ext_problem(40, 3, "f64", False, "cuda")
@@ -95,7 +97,7 @@ def main() -> int:
                                 "root_steps": int(out["root_steps"]),
                                 "donations": int(out["donations"]),
                                 "barren_skips": int(out["barren_skips"])}
-            both = cs.on_both_f64_instances(
+            both = cs.on_both_instances(
                 lambda: shortest_vector(b.copy(), device="cuda"),
                 turns=(False, True))
             norms = {sum(v * v for v in cs.lattice_point(b, x))
