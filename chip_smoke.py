@@ -10,9 +10,10 @@ Phases (each one fails the run if it fails):
      instances without stack or spills, its six f32 instances of BKZ-2.0
      at the registers recorded in BKZ_F32_PTXAS; the registers, blocks
      per SM and walkers at M = 32, 64 and 128 of the f64 primal instance
-     and of the dual, sub-solution and extended instances of both
-     element types, the f64 primal and f64 dual ones at two blocks per SM
-     or more at M <= 64) and the native C cores;
+     and of the dual, sub-solution, combined (dual with sub-solutions)
+     and extended instances of both element types, the f64 primal, f64
+     dual and f64 combined ones at two blocks per SM or more at M <= 64)
+     and the native C cores;
   2. the kernel against its plain PyTorch version on the card, for each
      launch form (root queue, with the plain version at 1024 and 16384
      lanes, a single root with nfix = 0) in count and search mode, a
@@ -32,10 +33,14 @@ Phases (each one fails the run if it fails):
      native C core, each answer certified by the other implementation,
      and the f32 answers' excess over their exact norms (the bound slack
      is 1e-5);
-  5. proved SVP (d = 56), fast and proved CVP, dual SVP and sub-solutions
-     (d = 50) on BKZ-20-reduced gen_intrel bases through the port's
-     public functions, each against the same call host-only; the dual
-     SVP also on the dual and the extended instance in turns;
+  5. proved SVP (d = 56), fast and proved CVP, dual SVP, dual SVP with
+     sub-solutions and sub-solutions (d = 50) on BKZ-20-reduced
+     gen_intrel bases through the port's public functions, each against
+     the same call host-only (the dual SVP with sub-solutions against
+     the host-only dual SVP, its records against the C core's per-level
+     dual SVPs); the dual SVP also on the dual and the extended instance
+     in turns, the dual SVP with sub-solutions on the combined and the
+     extended instance;
   6. the user surfaces: `latticegen r d 10d` into `fplll -a svp` and
      `-a cvp` (in this process and, for the SVP, as a pipeline of two
      processes); the pruner's gradient kernel against its plain version
@@ -77,7 +82,8 @@ Phases (each one fails the run if it fails):
 Trees run in f64 where the search is unpruned or certified, in f32 where
 it is pruned (enum/device.py:tree_dtype): phase 3's tour launches `single`
 and `grouped` alone, phases 5 and 6 the f64 forms (the dual SVP
-`f64-dual`), phase 6's pruned Enumeration `single`. Phases 4-7 run the
+`f64-dual`, with sub-solutions `f64-dual-subsols`), phase 6's pruned
+Enumeration `single`. Phases 4-7 run the
 facade at its default, native first pass included (bkz_tour puts the
 environment back as it found it).
 
@@ -97,15 +103,17 @@ environment back as it found it).
         # script's checks against the plain version and its d = 30
         # timing, so that every checkout is measured the same way
 
-Phase 2 also holds the f64, dual and sub-solution forms of the kernel
-against the plain version, each on its own instance (enum_chunk_f64_kernel,
-enum_chunk_dual_kernel, enum_chunk_subsols_kernel, with the lookahead);
-the same trees also run on the extended instance
+Phase 2 also holds the f64, dual, sub-solution and combined forms of
+the kernel against the plain version, each on its own instance
+(enum_chunk_f64_kernel, enum_chunk_dual_kernel,
+enum_chunk_subsols_kernel, enum_chunk_dual_subsols_kernel, with the
+lookahead); the same trees also run on the extended instance
 (kernels._enum_run_extended), in turns on one card: phase 2's d = 40
 trees (with each instance's ns per step at a grid of one block and
-latency floor); phase 5's proved SVP (f64) and its dual SVP (f64-dual,
+latency floor); phase 5's proved SVP (f64), its dual SVP (f64-dual,
 d = 50, or the proved-SVP basis's where the d = 50 kernel takes no more
-than DUAL_TREE_MS); phase 8's HKZ windows, recorded by its card leg and
+than DUAL_TREE_MS) and its dual SVP with sub-solutions
+(f64-dual-subsols, d = 50); phase 8's HKZ windows, recorded by its card leg and
 replayed once both HKZ card legs have reduced, beside the SD-BKZ and
 slide card legs; and the `f32-dual` launches of SD-BKZ's card leg,
 recorded there and replayed once phase 8 has collected its legs. The
@@ -795,7 +803,9 @@ EXT_CASES = [("f64", "f64", False, False, 40, 3, BOTH),
              ("f32-dual", "f32", True, False, 40, 4, BOTH),
              ("f64-dual", "f64", True, False, 40, 4, BOTH),
              ("f32-subsols", "f32", False, True, 40, 3, (True,)),
-             ("f64-subsols", "f64", False, True, 40, 3, (True,))]
+             ("f64-subsols", "f64", False, True, 40, 3, (True,)),
+             ("f32-dual-subsols", "f32", True, True, 40, 4, (True,)),
+             ("f64-dual-subsols", "f64", True, True, 40, 4, (True,))]
 
 
 def dual_tree(mut, rdiag, radius=1.0):
@@ -835,7 +845,9 @@ def ext_problem(d, seed, dtype, dual, device):
 # phase 2 runs the same tree on the extended one: the label its numbers
 # carry in the kernels line
 INSTANCE_OF = {"f64": "f64 primal", "f32-dual": "dual", "f64-dual": "dual",
-               "f32-subsols": "subsols", "f64-subsols": "subsols"}
+               "f32-subsols": "subsols", "f64-subsols": "subsols",
+               "f32-dual-subsols": "dual-subsols",
+               "f64-dual-subsols": "dual-subsols"}
 
 
 def both_instances(name, form, pack, kw, k_ms, m_real):
@@ -1263,6 +1275,7 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
         dev_wall, dev_total, dev_nodes, g_max, dev_timers = bkz_tour(
             b_dev, strategies, block, device, crossover)
     launches = dict(kernels.LAUNCHES)
+    extended = extended_launch_count()
     grids = sorted(set().union(*kernels.GRIDS.values()))
     kernels.reset_launch_counts()
     RandGen.init_with_seed(12)
@@ -1278,6 +1291,7 @@ def phase_main_path(device, dim=80, warm_blocks=(40, 50), block=60,
            "device_nodes": dev_nodes,
            "device_node_share": dev_nodes / max(dev_total, 1),
            "g_max": g_max, "launches": launches,
+           "extended_launches": extended,
            # (grid, blocks per SM, SMs) of the tour's launches
            "grids": grids,
            "host_tour_wall_s": host_wall, "host_tour_nodes": host_total,
@@ -1433,6 +1447,15 @@ def intrel_basis(d: int, seed: int):
     return b
 
 
+def extended_launch_count() -> int:
+    """Launches of the extended instance (kernels._enum_run_extended)
+    since the counts were last zeroed: none on a path, where every form
+    runs its own instance."""
+    from fplll_tpu_torch.enum import kernels
+
+    return sum(kernels.EXTENDED["launches"].values())
+
+
 class PathSpy:
     """Counts what one call through the public functions did: nodes the
     enumeration facades reported, each kernel launch's form, nodes and
@@ -1488,11 +1511,13 @@ class PathSpy:
         for owner, name, f in self._saved:
             setattr(owner, name, f)
         self.launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        self.extended_launches = extended_launch_count()
         return False
 
     def record(self, wall_s: float) -> dict:
         return {"wall_s": wall_s, "nodes": self.nodes,
                 "device_nodes": self.device_nodes, "launches": self.launches,
+                "extended_launches": self.extended_launches,
                 "longest_walker_walk": self.longest_walker_walk,
                 "longest_item_walk": self.longest_item_walk,
                 "donations": self.donations,
@@ -1695,12 +1720,124 @@ def dual_svp_on_both_instances(device, trees) -> dict:
     return rec
 
 
+def subsol_records(subsols, scale_exp, mu, r, lam, dual=False) -> dict:
+    """Checks of a search's sub-solution records (`subsols`, the
+    evaluator's (distance, coordinates) per level; the distances
+    2^scale_exp times the scale of the tree (mu, r)): each is a passing
+    node (its partial distance, recomputed in f64 from its coordinates
+    over the tree, with the dual recurrence where `dual`, to
+    PHASE5_RTOL) and no shorter than its level's shortest vector, which
+    the C core finds (one SVP per level on that level's subtree, from its
+    initial record r[lvl]); where that vector lies inside the final bound
+    `lam`, an unpruned search visited it, so the record is no longer than
+    it either. Returns the levels recorded, those inside the final
+    bound, the worst relative error and the seconds of the C core's
+    SVPs."""
+    import numpy as np
+    from fplll_tpu_torch.native import native_enumerate
+
+    t0 = time.perf_counter()
+    worst, below, checked = 0.0, 0, 0
+    for lvl, (dist, vec) in enumerate(subsols):
+        if not vec:
+            continue
+        checked += 1
+        x = np.asarray(vec, dtype=np.float64)
+        assert np.all(x[:lvl] == 0), lvl
+        rec_n = math.ldexp(dist, -scale_exp)
+        true = partial_dist(x, mu, r, lvl, dual)
+        worst = max(worst, abs(true - rec_n) / true)
+        assert abs(true - rec_n) <= PHASE5_RTOL * true, (lvl, true, rec_n)
+        best = float(native_enumerate(
+            np.ascontiguousarray(mu[lvl:, lvl:]), r[lvl:].copy(), None,
+            None, r[lvl] * (1 + 1e-9), True, dual, False)[1])
+        assert rec_n >= best * (1 - PHASE5_RTOL), (lvl, rec_n, best)
+        if best <= lam * (1 + PHASE5_RTOL):
+            below += 1
+            assert rec_n <= best * (1 + PHASE5_RTOL), (lvl, rec_n, best)
+    return {"host_level_svps_s": time.perf_counter() - t0,
+            "levels_recorded": checked, "levels_inside_final_bound": below,
+            "worst_record_rel_err": worst}
+
+
+def dual_svp_subsols(device, b, host) -> dict:
+    """Phase 5's dual SVP with sub-solutions through the public function
+    (shortest_vector_pruning with SVP_DUAL and find_subsols, unpruned: the
+    f64-dual-subsols form) on the card: every launch on the combined
+    instance (none on the extended one), the status and the dual length
+    (recomputed in f64 from its vector) and the reported length those of
+    the host-only dual SVP (`host`: status, dual length, reported length;
+    the same tree without the records: the host's C core keeps no
+    sub-solutions, and its Python walk would take the 1e8-node tree far
+    too long), every record valid (subsol_records over the dual tree in
+    the basis' scale: the records are in the dual tree's coordinates and
+    level order, their distances 2^(2 normExp) times the basis'); then
+    the same call on the combined and the extended instance in turns
+    (on_both_instances), every turn's answer the host's and its records
+    inside the final bound the first card run's (to PHASE5_RTOL)."""
+    import numpy as np
+    import torch
+    from fplll_tpu_torch.algs.svpcvp import shortest_vector_pruning
+    from fplll_tpu_torch.defs import SVP_DUAL
+
+    def call():
+        return shortest_vector_pruning(b.copy(), [], flags=SVP_DUAL,
+                                       find_subsols=True, device=device)
+
+    sh, lh, reported_host = host
+    t0 = time.perf_counter()
+    with PathSpy() as card:
+        sc, _, ev = call()
+        torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    assert card.launches.get("f64-dual-subsols", 0) > 0 and \
+        card.extended_launches == 0, (card.launches, card.extended_launches)
+    mut, rdiag, normexp = gso_of(b)
+    mu2, r2, _ = dual_tree(mut, np.ldexp(rdiag, normexp))
+    lc = dual_length(b, ev.begin()[1])
+    assert sc == sh == 0 and abs(lc - lh) <= PHASE5_RTOL * lh, (sc, lc, lh)
+    assert abs(ev.begin()[0] - reported_host) <= \
+        PHASE5_RTOL * reported_host, (ev.begin()[0], reported_host)
+    rec = {"case": f"dual SVP with sub-solutions d{b.nrows}",
+           "card": card.record(card_s),
+           "status": (sc, sh), "length_card": lc, "length_host": lh,
+           **subsol_records(ev.sub_solutions, 2 * ev.normExp, mu2, r2, lc,
+                            dual=True)}
+    assert rec["levels_recorded"] > 0 and \
+        rec["levels_inside_final_bound"] > 0, rec
+    t0 = time.perf_counter()
+    both = on_both_instances(call, forms=("f64-dual-subsols",),
+                             new="dual-subsols")
+    # the levels whose record lies inside the final bound: there the
+    # level's shortest vector does too, so every run visits it and records
+    # it; above the bound a record depends on the order of the search
+    first = {lvl: d for lvl, (d, x) in enumerate(ev.sub_solutions)
+             if x and math.ldexp(d, -2 * ev.normExp) <=
+             lc * (1 + PHASE5_RTOL)}
+    assert len(first) == rec["levels_inside_final_bound"], (first, rec)
+    for st, _, e in both.pop("results"):
+        v = dual_length(b, e.begin()[1])
+        assert st == 0 and abs(v - lh) <= PHASE5_RTOL * lh, (st, v, lh)
+        turn = e.sub_solutions
+        assert all(turn[lvl][1] and abs(turn[lvl][0] - d0) <=
+                   PHASE5_RTOL * d0 for lvl, d0 in first.items()), \
+            (turn, first)
+    assert all(r["launches"] > 0 for k in ("dual-subsols", "extended")
+               for r in both[k]), both
+    rec["dual_subsols_instances"] = {
+        "tree": f"dual SVP with sub-solutions d{b.nrows}", **both,
+        "seconds": time.perf_counter() - t0}
+    log("svp-cvp " + json.dumps(rec))
+    return rec
+
+
 def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
                   svp_seed=SVP_SEED, seed=CVP_SEED):
-    """Phase 5: proved SVP, both CVP methods, dual SVP and sub-solutions
-    through the port's public functions on the card, each answer held
-    against the same call host-only. Sizes are parameters only so the
-    phase can be rehearsed small."""
+    """Phase 5: proved SVP, both CVP methods, dual SVP, dual SVP with
+    sub-solutions and sub-solutions through the port's public functions
+    on the card, each answer held against the same call host-only (the
+    dual SVP with sub-solutions against the host-only dual SVP). Sizes
+    are parameters only so the phase can be rehearsed small."""
     import random
 
     import numpy as np
@@ -1708,7 +1845,6 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
                                              shortest_vector_ex,
                                              shortest_vector_pruning)
     from fplll_tpu_torch.defs import CVPM_PROVED, SVP_DUAL
-    from fplll_tpu_torch.native import native_enumerate
 
     recs = []
     # proved SVP: the exact minimum norm is unique. Its size: d = 60 was
@@ -1792,6 +1928,7 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
         device, ((f"d{cvp_dim}", b, lh), (f"d{svp_dim}", b_svp, None)))
     log("svp-cvp " + json.dumps(rec))
     recs.append(rec)
+    recs.append(dual_svp_subsols(device, b, (sh, lh, eh.begin()[0])))
 
     # sub-solutions: each record is a passing node (its recomputed
     # partial distance) and no longer than the shortest nonzero vector of
@@ -1805,31 +1942,12 @@ def phase_svp_cvp(device, svp_dim=SVP_DIM, cvp_dim=CVP_DIM,
     card_s = time.perf_counter() - t0
     assert card.launches.get("f64-subsols", 0) > 0, card.launches
     lam = math.ldexp(sum(v * v for v in lattice_point(b, xc)), -normexp)
-    t0 = time.perf_counter()
-    worst, below, checked = 0.0, 0, 0
-    for lvl, (dist, vec) in enumerate(ev.sub_solutions):
-        if not vec:
-            continue
-        checked += 1
-        x = np.asarray(vec, dtype=np.float64)
-        assert np.all(x[:lvl] == 0), lvl
-        rec_n = math.ldexp(dist, -normexp)
-        true = partial_dist(x, mut, rdiag, lvl)
-        worst = max(worst, abs(true - rec_n) / true)
-        assert abs(true - rec_n) <= PHASE5_RTOL * true, (lvl, true, rec_n)
-        best = float(native_enumerate(
-            np.ascontiguousarray(mut[lvl:, lvl:]), rdiag[lvl:].copy(), None,
-            None, rdiag[lvl] * (1 + 1e-9), True, False, False)[1])
-        assert rec_n >= best * (1 - PHASE5_RTOL), (lvl, rec_n, best)
-        if best <= lam * (1 + PHASE5_RTOL):
-            below += 1
-            assert rec_n <= best * (1 + PHASE5_RTOL), (lvl, rec_n, best)
     rec = {"case": f"sub-solutions d{cvp_dim}", "card": card.record(card_s),
-           "host_level_svps_s": time.perf_counter() - t0,
-           "levels_recorded": checked, "levels_inside_final_bound": below,
-           "worst_record_rel_err": worst, "status": sc}
+           **subsol_records(ev.sub_solutions, normexp, mut, rdiag, lam),
+           "status": sc}
     log("svp-cvp " + json.dumps(rec))
-    assert sc == 0 and checked > 0 and below > 0, rec
+    assert sc == 0 and rec["levels_recorded"] > 0 and \
+        rec["levels_inside_final_bound"] > 0, rec
     recs.append(rec)
     return recs
 
@@ -2783,6 +2901,14 @@ def surface_launches(rec) -> dict:
     return launches
 
 
+def surface_extended_launches(rec) -> int:
+    """The extended instance's launches on phase 6's path (the spies of
+    surface_launches)."""
+    return sum(spy["extended_launches"] for spy in (
+        rec["cli"]["svp"]["card"], rec["cli"]["cvp"]["card"],
+        rec["veneer"]["svp"], rec["veneer"]["enumeration"]))
+
+
 def phase6_numbers(surf, surface_counts) -> dict:
     """Phase 6's line: walls, launches per form, the CLI's and the veneer's
     times, the prune runs, and the X5 (gradient kernel) and X4 (device
@@ -2976,6 +3102,7 @@ def on_mesh(fn, forms):
     finally:
         tmesh.TRACE = None
     stats["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    stats["extended_launches"] = extended_launch_count()
     for form in forms:
         assert stats["launches"].get(form, 0) > 0, \
             f"the mesh run launched no {form} ({stats['launches']})"
@@ -3146,6 +3273,7 @@ def phase_mesh(device, devices=None, batch=MESH_BATCH, count=MESH_COUNT,
         for form, n in r["launches"].items():
             launches[form] = launches.get(form, 0) + n
     out = {"shards": [str(d) for d in mesh.devices], "launches": launches,
+           "extended_launches": sum(r["extended_launches"] for r in recs),
            "mesh_runs": tmesh.ShardedEnumerator.launches - mesh_launches,
            "checks": recs}
     return out
@@ -3231,10 +3359,12 @@ class VariantSpy(WindowAnswers):
         if api.get_external_enumerator() is not self._registered:
             api.set_external_enumerator(self._registered)
         self.launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        self.extended_launches = extended_launch_count()
         return False
 
     def record(self, wall_s: float) -> dict:
         return {"wall_s": wall_s, "launches": self.launches,
+                "extended_launches": self.extended_launches,
                 "route": "C tour" if self.c_tour_windows else
                 "Python engine" if sum(self.facade_windows.values()) else
                 "host",
@@ -3854,16 +3984,18 @@ BKZ_F32_PTXAS = {(32, False): 73, (32, True): 64, (64, False): 80,
 # the walk of each templated instance (EnumWalk in csrc/enum_chunk.cu)
 WALK_KERNELS = {"dual": "enum_chunk_dual_kernel",
                 "subsols": "enum_chunk_subsols_kernel",
+                "dual-subsols": "enum_chunk_dual_subsols_kernel",
                 "extended": "enum_chunk_ext_kernel"}
 
 
 def ptxas_instances(build_log: str) -> dict:
     """Per instance of enum_chunk_kernel (f32 primal),
     enum_chunk_f64_kernel (f64 primal), enum_chunk_dual_kernel,
-    enum_chunk_subsols_kernel and enum_chunk_ext_kernel in nvcc's
-    `-Xptxas -v` output: (element type, M, W, SMEM, walk: "primal",
-    "dual", "subsols" or "extended") -> (registers, stack frame, spill
-    stores, spill loads)."""
+    enum_chunk_subsols_kernel, enum_chunk_dual_subsols_kernel and
+    enum_chunk_ext_kernel in nvcc's `-Xptxas -v` output: (element type,
+    M, W, SMEM, walk: "primal", "dual", "subsols", "dual-subsols" or
+    "extended") -> (registers, stack frame, spill stores, spill
+    loads)."""
     out, key = {}, None
     for line in build_log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
@@ -3950,12 +4082,14 @@ def walk_geometries(instances, ms=(32, 64, 128)) -> dict:
 
 
 def walk_instances():
-    """(label, element type, walk code) of the dual, sub-solution and
-    extended instances of both element types, the label as the kernels
-    line writes it ("f64-dual", "f32-extended", ...)."""
+    """(label, element type, walk code) of the dual, sub-solution,
+    combined and extended instances of both element types, the label as
+    the kernels line writes it ("f64-dual", "f64-dual-subsols",
+    "f32-extended", ...)."""
     from fplll_tpu_torch.enum import kernels
 
     codes = {"dual": kernels.WALK_DUAL, "subsols": kernels.WALK_SUBSOLS,
+             "dual-subsols": kernels.WALK_DUAL_SUBSOLS,
              "extended": kernels.WALK_EXT}
     return [(f"{'f64' if elem == 'double' else 'f32'}-{walk}", elem, code)
             for walk, code in codes.items() for elem in ("float", "double")]
@@ -3966,14 +4100,15 @@ def phase_build() -> dict:
     together), print every instance's registers, stack frame and spills,
     and assert the enumeration kernel's instance set (the six f32
     instances of BKZ-2.0, M x SMEM, the f64 primal instance per M, and
-    the dual, sub-solution and extended walks per element type and M),
-    that none of them has a stack frame or spills, that the six f32
-    instances compile to the registers of BKZ_F32_PTXAS, and that the
+    the dual, sub-solution, combined and extended walks per element type
+    and M), that none of them has a stack frame or spills, that the six
+    f32 instances compile to the registers of BKZ_F32_PTXAS, and that the
     pruner's gradient kernel has no stack frame and no spills. Prints
     blocks per SM and walkers of both f64 instances and of the dual,
-    sub-solution and extended instances of both element types at M = 32,
-    64 and 128, and asserts at least two blocks per SM for the f64 primal
-    and the f64 dual instances at M = 32 and 64."""
+    sub-solution, combined and extended instances of both element types
+    at M = 32, 64 and 128, and asserts at least two blocks per SM for the
+    f64 primal, the f64 dual and the f64 combined instances at M = 32 and
+    64."""
     from concurrent.futures import ThreadPoolExecutor
 
     from fplll_tpu_torch.enum import kernels
@@ -4040,7 +4175,8 @@ def phase_build() -> dict:
         "loads) " + json.dumps(walk_ptxas) + "; persistent grid " +
         json.dumps(walk_geo))
     for M in (32, 64):
-        assert walk_geo[f"f64-dual M={M}"]["blocks_per_sm"] >= 2, walk_geo
+        for label in ("f64-dual", "f64-dual-subsols"):
+            assert walk_geo[f"{label} M={M}"]["blocks_per_sm"] >= 2, walk_geo
     return {"nvcc_s": build_s, "pruner_nvcc_s": pruner_s, "wall_s": wall,
             "instances": len(inst), "pruner_ptxas": pruner_ptxas,
             "f64_ptxas": f64_ptxas, "f64_geometry": geo,
@@ -4054,11 +4190,16 @@ KERNEL_OF = {"f64": "enum_chunk_f64_kernel<M, 32>",
              "f32-subsols":
              "enum_chunk_subsols_kernel<float, M, 32> f32-subsols",
              "f64-subsols":
-             "enum_chunk_subsols_kernel<double, M, 32> f64-subsols"}
+             "enum_chunk_subsols_kernel<double, M, 32> f64-subsols",
+             "f32-dual-subsols": "enum_chunk_dual_subsols_kernel<float, M, "
+             "32> f32-dual-subsols",
+             "f64-dual-subsols": "enum_chunk_dual_subsols_kernel<double, M, "
+             "32> f64-dual-subsols"}
 
 
-def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
-                     replay=None, dual_replay=None) -> list:
+def extended_entries(ext_recs, svp_recs, path_counts, ext_path,
+                     build_rec=None, replay=None,
+                     dual_replay=None) -> list:
     """The `kernels` line's entry of each form of the proved solvers: its
     phase-2 numbers (count mode, and search mode where it ran) and its
     launches on phase 5's path and on phases 6-8 (`path_counts`). The
@@ -4066,11 +4207,13 @@ def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
     on the extended instance beside it: phase 2's d = 40 tree, phase 5's
     proved SVP and phase 8's replayed HKZ windows (`replay`), and both
     instances' registers and geometry from phase 1 (`build_rec`). The
-    dual and sub-solution forms' entries are their instances', each with
-    `ext_instances`: phase 2's tree on both, and for `f64-dual` phase 5's
-    dual SVP, for `f32-dual` SD-BKZ's replayed launches (`dual_replay`).
-    A last entry is the extended instance's, which runs the combined
-    forms (no launches on the path) and every comparison."""
+    dual, sub-solution and combined forms' entries are their instances',
+    each with `ext_instances`: phase 2's tree on both, and for `f64-dual`
+    phase 5's dual SVP, for `f64-dual-subsols` phase 5's dual SVP with
+    sub-solutions, for `f32-dual` SD-BKZ's replayed launches
+    (`dual_replay`). A last entry is the extended instance's, which runs
+    the comparisons only: its launches on the paths, per phase in
+    `ext_path`."""
     launches = dict(path_counts)
     for r in svp_recs:
         for form, n in r["card"]["launches"].items():
@@ -4120,22 +4263,24 @@ def extended_entries(ext_recs, svp_recs, path_counts, build_rec=None,
         else:
             entries[-1]["ext_instances"] = ext_instance_numbers(
                 form, by_mode, svp_recs, build_rec, dual_replay)
-    entries.append(ext_kernel_entry(ext_recs, launches))
+    entries.append(ext_kernel_entry(ext_recs, ext_path))
     return entries
 
 
 def ext_instance_numbers(form, by_mode, svp_recs, build_rec,
                          dual_replay) -> dict:
-    """A dual or sub-solution entry's comparison of its instance with the
-    extended one, each measured in this run on this card: phase 2's
-    d = 40 tree (kernel ms in turns per mode, ns per step at a grid of
-    one block, the latency floor, barren skips), for `f64-dual` phase 5's
-    dual SVP (kernel ms and wall per call) and for `f32-dual` SD-BKZ's
-    replayed launches (kernel ms summed per turn), registers and
-    geometry."""
+    """A dual, sub-solution or combined entry's comparison of its
+    instance with the extended one, each measured in this run on this
+    card: phase 2's d = 40 tree (kernel ms in turns per mode, ns per step
+    at a grid of one block, the latency floor, barren skips), for
+    `f64-dual` phase 5's dual SVP and for `f64-dual-subsols` phase 5's
+    dual SVP with sub-solutions (kernel ms and wall per call), for
+    `f32-dual` SD-BKZ's replayed launches (kernel ms summed per turn),
+    registers and geometry."""
     new = INSTANCE_OF[form]
-    dual = next((r["dual_instances"] for r in svp_recs
-                 if "dual_instances" in r), None)
+    key = {"f64-dual": "dual_instances",
+           "f64-dual-subsols": "dual_subsols_instances"}.get(form)
+    dual = next((r[key] for r in svp_recs if key in r), None)
     out = {}
     for inst in (new, "extended"):
         label = f"{form[:3]}-{'extended' if inst == 'extended' else new}"
@@ -4148,7 +4293,7 @@ def ext_instance_numbers(form, by_mode, svp_recs, build_rec,
             "geometry": None if build_rec is None else
             {k: v for k, v in build_rec["walk_geometry"].items()
              if k.startswith(label + " ")}}
-        if form == "f64-dual" and dual is not None:
+        if dual is not None:
             rec["dual_svp"] = dual["tree"]
             rec["dual_svp_kernel_ms"] = [r["kernel_ms"] for r in dual[inst]]
             rec["dual_svp_wall_s"] = [r["wall_s"] for r in dual[inst]]
@@ -4159,25 +4304,26 @@ def ext_instance_numbers(form, by_mode, svp_recs, build_rec,
     return out
 
 
-def ext_kernel_entry(ext_recs, launches) -> dict:
-    """The extended instance's entry: the combined forms' launches on the
-    path (none), and its numbers from phase 2's comparisons, where it ran
-    each dual and sub-solution tree beside the form's instance: the f64
-    dual d = 40 count tree's first kernel ms on it, that tree's plain
-    version and bound, and its largest difference from the plain version
-    over every comparison."""
+def ext_kernel_entry(ext_recs, ext_path) -> dict:
+    """The extended instance's entry: comparisons only, its launches on
+    the paths (`ext_path`, per phase; every form launches its own
+    instance, so none), and its numbers from
+    phase 2's comparisons, where it ran each f64, dual, sub-solution and
+    combined tree beside the form's instance: the f64 dual d = 40 count
+    tree's first kernel ms on it, that tree's plain version and bound,
+    and its largest difference from the plain version over every
+    comparison."""
     comps = [r for r in ext_recs if r["form"] in INSTANCE_OF]
     c = next(r for r in comps if (r["form"], r["mode"]) ==
              ("f64-dual", "count"))
     return {
-        "name": "enum_chunk_ext_kernel<T, M, 32> (f32-dual-subsols, "
-                "f64-dual-subsols; every comparison)",
+        "name": "enum_chunk_ext_kernel<T, M, 32> (comparisons only)",
         "route": "cuda",
         "source": "fplll_tpu_torch/csrc/enum_chunk.cu",
         "replaces": "fplll_tpu/enum/tpu.py:213 (_enum_run, dual and "
                     "findsubsols as runtime flags)",
-        "launches": sum(launches.get(f, 0) for f in (
-            "f32-dual-subsols", "f64-dual-subsols")),
+        "launches": sum(ext_path.values()),
+        "launches_by_phase": ext_path,
         "max_abs_err": max(r["instances"]["extended_best_abs_err"]
                            for r in comps),
         "ms": c["instances"]["kernel_ms"]["extended"][0],
@@ -4499,6 +4645,16 @@ def all_phases(device, card, legs, build_rec) -> int:
                    variant_counts.get(k, 0)
                    for k in set(surface_counts) | set(mesh_counts) |
                    set(variant_counts)}
+    # the extended instance's launches on the paths (the comparison turns
+    # are not path runs): none, every form runs its own instance
+    ext_path = {
+        "phase3": main_rec["extended_launches"],
+        "phase5": sum(r["card"]["extended_launches"] for r in svp_recs),
+        "phase6": surface_extended_launches(surf),
+        "phase7": mesh_rec["extended_launches"],
+        "phase8": sum(r["card"]["extended_launches"] for r in var_recs)}
+    assert not any(ext_path.values()), \
+        f"the extended instance launched on a path: {ext_path}"
 
     grouped = next(f for f in forms if f["form"].startswith("grouped"))
     by_form = {"queue d56 count r0.7": timing["kernel_ms"],
@@ -4553,8 +4709,9 @@ def all_phases(device, card, legs, build_rec) -> int:
             "walkers", "W", "M", "grid", "blocks_per_sm", "sms",
             "longest_walker_walk", "longest_item_walk", "busy_share",
             "donations", "barren_skips")},
-    }] + extended_entries(ext_recs, svp_recs, path_counts, build_rec,
-                          replay, dual_replay) + [pruner_entry(surf)]
+    }] + extended_entries(ext_recs, svp_recs, path_counts, ext_path,
+                          build_rec, replay, dual_replay) + \
+        [pruner_entry(surf)]
     for e in entries:
         # the kernels' times come from phase 2's kernel runs, the plain
         # versions' from its checks, the gradient kernel's from phase 6

@@ -31,15 +31,17 @@
  *     distance, its coordinates from that level up and its root), lowered
  *     under a per-(problem, level) lock; level 0's candidate comes out of
  *     the absorbed leaf range;
+ *   - enum_chunk_dual_subsols_kernel<T, M, W>, the combined walk: the
+ *     dual recurrence with the sub-solution records (the public dual SVP
+ *     with find_subsols, f64 since its tree is unpruned);
  *   - enum_chunk_ext_kernel<T, M, W>, the extended walk, with dual and
- *     findsubsols as runtime flags and no lookahead: the two combined
- *     forms (dual with sub-solutions, which no path of the port
- *     launches) and whatever a caller sends there by name
- *     (EnumParams.ext), to compare it with the instances above.
+ *     findsubsols as runtime flags and no lookahead: only what a caller
+ *     sends there by name (EnumParams.ext), to compare it with the
+ *     instances above; no path of the port launches it.
  * Each instance compiles only the state of its walk: no sub-solution
- * record outside the sub-solution walk, no dual subtraction outside the
- * dual one. All but the extended instance have the barren-descend
- * lookahead.
+ * record outside the two walks with records, no dual subtraction outside
+ * the two dual ones. All but the extended instance have the
+ * barren-descend lookahead.
  *
  * What it computes (the contract of the JAX package's tpu._make_step /
  * _enum_run): each walker pops a subtree root with atomicAdd
@@ -64,8 +66,7 @@
  *     skips the descend's subtract and the ascend's restore of the center
  *     sums below it (barren_skips counts them). A skipped child would
  *     have offered no sub-solution record: it fails its own first bound
- *     test. The plain version's forms do the same, the combined ones
- *     excepted;
+ *     test. The plain version's forms do the same;
  *   - top-sibling donation (pallas_kernel.py:546-674), in every instance:
  *     once every queue has drained, an idle walker takes a ticket (the
  *     request queue) and waits in its ticket's mailbox; a busy walker that
@@ -188,7 +189,13 @@
  *     registers, 4 / 3 / 2 blocks at M = 32 / 64 / 128; a minimum of one
  *     or two gave 87-111 registers, three spilled at M = 128);
  *   - f32 sub-solutions: ENUM_SUBSOLS_F32_MIN_BLOCKS, three, at M <= 64
- *     (80 registers), two at M = 128 (111); four spilled.
+ *     (80 registers), two at M = 128 (111); four spilled;
+ *   - dual with sub-solutions: the sub-solution instance's bounds, since
+ *     the records set the register pressure; swept on their own they
+ *     gave the same (f64 two at M <= 64, 124 / 128 registers, one block
+ *     took 144 at M = 64, three capped it at 80 registers with a stack
+ *     frame and spills; f32 three at M <= 64, 80 registers, two at
+ *     M = 128, 111; four spilled).
  * Shared memory does not limit that: one f64 problem takes 9 KB at
  * M = 32 and 34 KB at M = 64; at M = 128 it takes 134 KB, so that bucket
  * runs one f64 block per SM whatever the registers, and its launch
@@ -214,22 +221,25 @@
                                       f32 primal instances, none) */
 #endif
 #ifndef ENUM_SUBSOLS_F64_MIN_BLOCKS
-#define ENUM_SUBSOLS_F64_MIN_BLOCKS 2 /* the f64 sub-solution instance's
-                                         at M <= 64 */
+#define ENUM_SUBSOLS_F64_MIN_BLOCKS 2 /* the f64 sub-solution and
+                                         combined instances' at M <= 64 */
 #endif
 #ifndef ENUM_SUBSOLS_F32_MIN_BLOCKS
-#define ENUM_SUBSOLS_F32_MIN_BLOCKS 3 /* the f32 sub-solution instance's
-                                         at M <= 64 (2 at M = 128) */
+#define ENUM_SUBSOLS_F32_MIN_BLOCKS 3 /* the f32 sub-solution and
+                                         combined instances' at M <= 64
+                                         (2 at M = 128) */
 #endif
 #define ENUM_DONE (-1)        /* a mailbox's sequence word once the launch
                                  has no work left to donate */
 
 /* the walk an instance compiles (enum_chunk_walk's WALK) */
 enum EnumWalk {
-  ENUM_PRIMAL = 0,  /* primal recurrence, with the lookahead */
-  ENUM_DUAL = 1,    /* dual recurrence, with the lookahead */
-  ENUM_SUBSOLS = 2, /* primal, sub-solution records, with the lookahead */
-  ENUM_EXT = 3      /* dual and records as runtime flags, no lookahead */
+  ENUM_PRIMAL = 0,       /* primal recurrence, with the lookahead */
+  ENUM_DUAL = 1,         /* dual recurrence, with the lookahead */
+  ENUM_SUBSOLS = 2,      /* primal, sub-solution records, lookahead */
+  ENUM_DUAL_SUBSOLS = 3, /* dual, sub-solution records, lookahead */
+  ENUM_EXT = 4           /* dual and records as runtime flags, no
+                            lookahead */
 };
 
 /* Element type T of the floating-point arrays: float, or double when dbl
@@ -288,8 +298,7 @@ struct EnumParams {
   int dbl, dual, findsubsols;
   int ext;               /* run the extended instance with dual and
                             findsubsols as given (a comparison with the
-                            instance of the form; the launcher takes it
-                            for dual with sub-solutions in any case) */
+                            instance of the form) */
 };
 
 /* launch geometry of one instance, as the launcher chooses it */
@@ -479,9 +488,10 @@ __device__ __forceinline__ void release_mailboxes(const EnumParams &P, int t,
    prune of the real problems sit in shared memory (enum_smem_bytes > 0),
    else they are read from global memory. WALK: what the instance
    compiles (EnumWalk): the primal recurrence, the dual one, the primal
-   one with the sub-solution records, each with the barren-descend
-   lookahead, or the extended walk, with the dual recurrence and the
-   records as runtime flags (P.dual, P.findsubsols) and no lookahead.
+   or the dual one with the sub-solution records, each with the
+   barren-descend lookahead, or the extended walk, with the dual
+   recurrence and the records as runtime flags (P.dual, P.findsubsols)
+   and no lookahead.
 
    A walker's work items are roots popped from the queues and, once every
    queue has drained, top-level sibling ranges donated by busy walkers
@@ -501,9 +511,12 @@ __device__ __forceinline__ void enum_chunk_walk(const EnumParams &P) {
   const int walker = (int)((blockIdx.x * blockDim.x + threadIdx.x) / W);
   const bool svp = P.is_svp != 0, count_mode = P.count_mode != 0;
   constexpr bool EXT = WALK == ENUM_EXT;
-  constexpr bool RECORDS = WALK == ENUM_SUBSOLS || EXT;
-  const bool dual = WALK == ENUM_DUAL || (EXT && P.dual != 0);
-  const bool subsols = WALK == ENUM_SUBSOLS || (EXT && P.findsubsols != 0);
+  constexpr bool RECORDS =
+      WALK == ENUM_SUBSOLS || WALK == ENUM_DUAL_SUBSOLS || EXT;
+  const bool dual = WALK == ENUM_DUAL || WALK == ENUM_DUAL_SUBSOLS ||
+                    (EXT && P.dual != 0);
+  const bool subsols = WALK == ENUM_SUBSOLS || WALK == ENUM_DUAL_SUBSOLS ||
+                       (EXT && P.findsubsols != 0);
   const int pf = enum_problem_floats(m);
 
   /* s_mu[k * ld + j] = mut[j][k] for j < k: the row a descend from level
@@ -1020,12 +1033,21 @@ enum_chunk_subsols_kernel(EnumParams P) {
   enum_chunk_walk<T, M, W, true, ENUM_SUBSOLS>(P);
 }
 
+/* the dual walk with the sub-solution records (the f32-dual-subsols and
+   f64-dual-subsols forms), one problem in shared memory, with the
+   barren-descend lookahead; the sub-solution instance's bounds */
+template <typename T, int M, int W>
+__global__ void __launch_bounds__(ENUM_THREADS,
+                                  (enum_subsols_min_blocks<T, M>()))
+enum_chunk_dual_subsols_kernel(EnumParams P) {
+  enum_chunk_walk<T, M, W, true, ENUM_DUAL_SUBSOLS>(P);
+}
+
 /* the extended walk, one problem in shared memory; at least one block
    per SM, so that ptxas keeps its larger state in registers (with the
    primal instances' bounds the float M = 128 instance spilled). It runs
-   what EnumParams.ext names (a comparison with the instances above) and
-   the two combined forms, dual with sub-solutions, which no path of the
-   port launches */
+   only what EnumParams.ext names, a comparison with the instances
+   above; no path of the port launches it */
 template <typename T, int M, int W>
 __global__ void __launch_bounds__(ENUM_THREADS, 1)
 enum_chunk_ext_kernel(EnumParams P) {
@@ -1034,17 +1056,19 @@ enum_chunk_ext_kernel(EnumParams P) {
 
 typedef void (*EnumKernel)(EnumParams);
 
-/* the walk of a launch (EnumWalk): the extended one where the caller
-   names it (P.ext) or where it is dual with sub-solutions */
+/* the walk of a launch (EnumWalk): the extended one only where the
+   caller names it (P.ext) */
 __host__ __device__ inline int enum_walk_of(const EnumParams &P) {
-  if (P.ext || (P.dual && P.findsubsols)) return ENUM_EXT;
-  return P.dual ? ENUM_DUAL : P.findsubsols ? ENUM_SUBSOLS : ENUM_PRIMAL;
+  if (P.ext) return ENUM_EXT;
+  if (P.dual) return P.findsubsols ? ENUM_DUAL_SUBSOLS : ENUM_DUAL;
+  return P.findsubsols ? ENUM_SUBSOLS : ENUM_PRIMAL;
 }
 
 /* the instance for a launch over G_real problems of height m of element
    type double (dbl) or float, of walk `walk` (nullptr if none): the f32
    primal instances of BKZ; the f64 primal instance; the dual, the
-   sub-solution and the extended instances of the element type. All but
+   sub-solution, the combined and the extended instances of the element
+   type. All but
    the f32 primal instances hold one problem in shared memory. */
 static EnumKernel enum_instance(int m, int G_real, int dbl, int walk) {
 #define ENUM_INSTANCES(MM) \
@@ -1062,9 +1086,10 @@ static EnumKernel enum_instance(int m, int G_real, int dbl, int walk) {
    KERNEL<TT, 128, ENUM_WIDTH>}
 #define ENUM_WALK_TABLE(KERNEL) \
   {ENUM_WALK_INSTANCES(KERNEL, float), ENUM_WALK_INSTANCES(KERNEL, double)}
-  static const EnumKernel walk_table[3][2][3] = {
+  static const EnumKernel walk_table[4][2][3] = {
       ENUM_WALK_TABLE(enum_chunk_dual_kernel),
       ENUM_WALK_TABLE(enum_chunk_subsols_kernel),
+      ENUM_WALK_TABLE(enum_chunk_dual_subsols_kernel),
       ENUM_WALK_TABLE(enum_chunk_ext_kernel)};
 #undef ENUM_WALK_TABLE
 #undef ENUM_WALK_INSTANCES

@@ -21,9 +21,8 @@ tensors it runs the plain PyTorch version, a vectorized port of the
 lockstep step of `tpu._make_step`/`_enum_run` (SVP/CVP, count and search
 mode; enum_run also in f64, with the dual recurrence and with per-level
 sub-solutions), with the Pallas kernel's barren-descend lookahead in
-every form that the kernel runs with it (all but the two combined forms,
-dual with sub-solutions). Nothing on the card's path calls the plain
-version.
+every form, as the kernel's instance of each form has it. Nothing on the
+card's path calls the plain version.
 
 Once the root queues have drained, the kernel's idle walkers take the
 top-level sibling ranges of busy ones (the Pallas kernel's top-sibling
@@ -44,12 +43,12 @@ per (problem, walker), sized from the geometry the launcher reports.
 Instances: "single" and "grouped" launch ``enum_chunk_kernel`` (f32
 primal), "f64" ``enum_chunk_f64_kernel`` (f64 primal), "f32-dual" and
 "f64-dual" ``enum_chunk_dual_kernel``, "f32-subsols" and "f64-subsols"
-``enum_chunk_subsols_kernel`` of their element type, each with the
-lookahead; the combined forms ("f32-dual-subsols", "f64-dual-subsols",
-which no path of the port launches) ``enum_chunk_ext_kernel``, the
-extended walk without it. :func:`_enum_run_extended` runs any tree of
-enum_run on the extended instance instead, for the comparison of the two
-designs; no path of the port calls it.
+``enum_chunk_subsols_kernel``, the combined forms "f32-dual-subsols" and
+"f64-dual-subsols" ``enum_chunk_dual_subsols_kernel``, each of its
+element type and with the lookahead. :func:`_enum_run_extended` runs any
+tree of enum_run on the extended instance (``enum_chunk_ext_kernel``,
+dual and sub-solutions as runtime flags, no lookahead) instead, for the
+comparison of the two designs; no path of the port calls it.
 
 Counts: ``LAUNCHES`` counts kernel launches per form (``FORMS``) and
 nothing else, ``PLAIN_RUNS`` the wrappers' runs of the plain version,
@@ -91,7 +90,8 @@ EXTENDED: Dict[str, Dict[str, int]] = {
     "launches": {form: 0 for form in FORMS},
     "plain_runs": {form: 0 for form in FORMS}}
 # the walks of the CUDA source (EnumWalk in csrc/enum_chunk.cu)
-WALK_PRIMAL, WALK_DUAL, WALK_SUBSOLS, WALK_EXT = 0, 1, 2, 3
+WALK_PRIMAL, WALK_DUAL, WALK_SUBSOLS, WALK_DUAL_SUBSOLS, WALK_EXT = \
+    0, 1, 2, 3, 4
 
 
 def _form(dtype, dual: bool, findsubsols: bool) -> str:
@@ -104,12 +104,12 @@ def _form(dtype, dual: bool, findsubsols: bool) -> str:
 
 def _walk(dual: bool, findsubsols: bool, ext: bool = False) -> int:
     """The walk a launch runs (enum_walk_of in the CUDA source): the
-    extended one where the caller names it or where the tree is dual with
-    sub-solutions."""
-    if ext or (dual and findsubsols):
+    extended one only where the caller names it."""
+    if ext:
         return WALK_EXT
-    return WALK_DUAL if dual else WALK_SUBSOLS if findsubsols else \
-        WALK_PRIMAL
+    if dual:
+        return WALK_DUAL_SUBSOLS if findsubsols else WALK_DUAL
+    return WALK_SUBSOLS if findsubsols else WALK_PRIMAL
 
 
 def reset_launch_counts() -> None:
@@ -291,8 +291,8 @@ def _geometry(m: int, G_real: int, dtype, walk: int, grid: int = 0) -> dict:
     (the persistent grid); it also gives threads per block, the walker
     width W, the height bucket M, blocks per SM, SMs, dynamic shared
     memory and walkers (grid * threads / W). `walk`: WALK_PRIMAL,
-    WALK_DUAL, WALK_SUBSOLS or WALK_EXT (the extended instance), as
-    _walk gives it."""
+    WALK_DUAL, WALK_SUBSOLS, WALK_DUAL_SUBSOLS or WALK_EXT (the extended
+    instance), as _walk gives it."""
     lib = build_kernel()
     g = _EnumGeometry()
     _raise(lib, lib.enum_chunk_geometry(
@@ -585,9 +585,8 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     the per-level best partials: subsol_dist (m,), subsol_vec (m, m) and
     subsol_root (m, nfix). Every form skips barren descends
     (barren_skips: how many), as the kernel's instance of that form
-    does, but the combined forms (dual with sub-solutions), whose
-    instance is the extended one; `extended` walks any tree without the
-    lookahead, as the extended instance does."""
+    does; `extended` walks any tree without the lookahead, as the
+    extended instance does."""
     dev, ft = mut.device, mut.dtype
     B, R, nfix = batch, roots_x.shape[0], roots_x.shape[1]
     if R == 0:
@@ -650,15 +649,14 @@ def enum_run_plain(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     check_every = 1 if dev.type == "cpu" else 32
     steps = 0
     barren_skips = torch.zeros((), dtype=torch.int64, device=dev)
-    # every form but the combined ones runs the Pallas kernel's
-    # barren-descend lookahead, as the CUDA kernel's instance of that form
-    # does (the combined forms run on the extended instance, which has
-    # none). A barren node's sibling step takes the next lockstep step,
+    # every form runs the Pallas kernel's barren-descend lookahead, as
+    # the CUDA kernel's instance of that form does (the extended instance
+    # has none). A barren node's sibling step takes the next lockstep step,
     # the one its failing child's test would have taken, so that the
     # steps at which a search's bound falls stay those of the walk
     # without it (tpu._enum_run's): a lane marked `pending` tests nothing
     # in that step, it only moves to the sibling
-    lookahead = not extended and not (dual and findsubsols)
+    lookahead = not extended
     pending = torch.zeros(B, dtype=torch.bool, device=dev)
 
     while steps < max_steps:

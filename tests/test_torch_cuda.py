@@ -347,23 +347,25 @@ def test_f64_tree_on_both_f64_instances(card):
     assert new["geometry"]["walkers"] >= old["geometry"]["walkers"]
 
 
-# (dtype, dual, sub-solutions) of the forms whose instance is the dual or
-# the sub-solution walk
+# (dtype, dual, sub-solutions) of the forms whose instance is the dual,
+# the sub-solution or the combined walk
 WALK_FORMS = [(torch.float32, True, False), (torch.float64, True, False),
-              (torch.float32, False, True), (torch.float64, False, True)]
+              (torch.float32, False, True), (torch.float64, False, True),
+              (torch.float32, True, True), (torch.float64, True, True)]
 
 
 @pytest.mark.parametrize("dtype,dual,findsubsols", WALK_FORMS,
                          ids=[kernels._form(*f) for f in WALK_FORMS])
 def test_tree_on_both_designs(card, dtype, dual, findsubsols):
-    """The d = 30 tree of a dual or sub-solution form on its own instance
-    (enum_run: enum_chunk_dual_kernel or enum_chunk_subsols_kernel) and on
-    the extended one (kernels._enum_run_extended): each against the plain
-    version, count mode to the Pallas tolerance where it donated and the
-    sub-solution distances to 1e-12 in f64 (1e-6 in f32) there, both
-    searches' best distance the plain version's to that tolerance; only
-    the new instance skips barren descends; it runs no fewer walkers than
-    the extended one, and each launch counts where it should."""
+    """The d = 30 tree of a dual, sub-solution or combined form on its own
+    instance (enum_run: enum_chunk_dual_kernel, enum_chunk_subsols_kernel
+    or enum_chunk_dual_subsols_kernel) and on the extended one
+    (kernels._enum_run_extended): each against the plain version, count
+    mode to the Pallas tolerance where it donated and the sub-solution
+    distances to 1e-12 in f64 (1e-6 in f32) there, both searches' best
+    distance the plain version's to that tolerance; only the new
+    instance skips barren descends; it runs no fewer walkers than the
+    extended one, and each launch counts where it should."""
     pack = ext_packed(30, 1, dtype, dual, card)
     mr = pack["m_real"]
     plain_args = {k: v for k, v in pack.items() if k != "m_real"}
@@ -394,16 +396,20 @@ def test_tree_on_both_designs(card, dtype, dual, findsubsols):
 
 @pytest.mark.parametrize("M", [32, 64, 128])
 def test_walk_instances_geometry(card, M):
-    """The launcher's persistent grid for the dual and sub-solution
-    instances of both element types and for the extended one at height
-    bucket M: at least one block per SM each, and at least two for the
-    f64 dual instance at M <= 64 (the f64 primal instance's bound)."""
+    """The launcher's persistent grid for the dual, sub-solution and
+    combined instances of both element types and for the extended one at
+    height bucket M: at least one block per SM each, and at least two for
+    the f64 dual and f64 combined instances at M <= 64 (the f64 primal
+    instance's bound)."""
     for dtype in (torch.float32, torch.float64):
         geo = {walk: kernels._geometry(M, 1, dtype, walk) for walk in (
-            kernels.WALK_DUAL, kernels.WALK_SUBSOLS, kernels.WALK_EXT)}
+            kernels.WALK_DUAL, kernels.WALK_SUBSOLS,
+            kernels.WALK_DUAL_SUBSOLS, kernels.WALK_EXT)}
         assert all(g["blocks_per_sm"] >= 1 for g in geo.values()), geo
         if dtype == torch.float64 and M <= 64:
             assert geo[kernels.WALK_DUAL]["blocks_per_sm"] >= 2, geo
+            assert geo[kernels.WALK_DUAL_SUBSOLS]["blocks_per_sm"] >= 2, \
+                geo
 
 
 @pytest.mark.parametrize("d", [10, 20, 30])

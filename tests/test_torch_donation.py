@@ -2,12 +2,12 @@
 
 `csrc/enum_chunk.cu` hands the sibling ranges of a busy walker's top
 level to idle walkers once the root queues have drained (the Pallas
-kernel's top-sibling donation), and its instances of the primal, dual
-and sub-solution walks (f32 and f64) skip a descend whose nearest child
-already fails (the barren-descend lookahead); the plain version's forms
-run the same lookahead. The extended instance, which runs the combined
-forms (dual with sub-solutions) and to which any tree can still be sent
-by name (`kernels._enum_run_extended`), has none. An adoptee re-derives the center sums below the donated level
+kernel's top-sibling donation), and its instances of the primal, dual,
+sub-solution and combined (dual with sub-solutions) walks (f32 and f64)
+skip a descend whose nearest child already fails (the barren-descend
+lookahead); the plain version's forms run the same lookahead. The
+extended instance, to which any tree can be sent by name
+(`kernels._enum_run_extended`), has none. An adoptee re-derives the center sums below the donated level
 from its root, and a skipped descend skips an f32 subtract/restore round
 trip, so on realistic trees counts may move at ULP level (the tolerance
 of tests/test_pallas_parity.py). On the dyadic trees here every sum and
@@ -159,11 +159,10 @@ def tree_problem(d, seed, pruned=False, dual=False, radius=1.0, **kw):
 
 
 # (name, element type, dual, sub-solutions, extended instance by name):
-# every instance of the kernel, each form on the instance it launches
-# (the combined form on the extended one), and the f64 primal, dual and
-# sub-solution trees also on the extended instance ("-extended", named
-# through EnumParams.ext); every instance but the extended one has the
-# lookahead
+# every instance of the kernel, each form on the instance it launches,
+# and the f64 primal, dual, sub-solution and combined trees also on the
+# extended instance ("-extended", named through EnumParams.ext); every
+# instance but the extended one has the lookahead
 INSTANCES = [("single", F32, False, False, False),
              ("f64", F64, False, False, False),
              ("f64-extended", F64, False, False, True),
@@ -175,13 +174,16 @@ INSTANCES = [("single", F32, False, False, False),
              ("f32-subsols-extended", F32, False, True, True),
              ("f64-subsols", F64, False, True, False),
              ("f64-subsols-extended", F64, False, True, True),
-             ("f64-dual-subsols", F64, True, True, False)]
+             ("f32-dual-subsols", F32, True, True, False),
+             ("f32-dual-subsols-extended", F32, True, True, True),
+             ("f64-dual-subsols", F64, True, True, False),
+             ("f64-dual-subsols-extended", F64, True, True, True)]
 IDS = [i[0] for i in INSTANCES]
 
 
 def has_lookahead(dual, subsols, ext) -> bool:
     """Whether the instance of a launch skips barren descends: all but the
-    extended one."""
+    extended one, which a launch reaches only by name."""
     return kernels._walk(dual, subsols, ext) != kernels.WALK_EXT
 # (d, seed, pruned, radius): the primal trees, about 1e4 nodes each; the
 # dual recurrence runs on the d = 20 tree of its own mu, pruned (6,404

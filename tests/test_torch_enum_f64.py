@@ -8,12 +8,13 @@ XLA kernel `tpu._enum_run` in the same dtype: per-level node counts and
 solution counts exactly equal, best distances bit-equal, the sub-solution
 records equal per level. Both walk the same lockstep steps in the same
 arithmetic, and both expand the roots with the same C code
-(jax_reference.py). The plain f64 primal form walks with the
-barren-descend lookahead, as the f32 primal form does and the CUDA
-kernel's primal instances do; tpu._enum_run has none, and its counts are
-matched step for step (a barren node's sibling step takes the lockstep
-step of its failing child). The CUDA source's f64 primal and extended
-instances are compiled for the host and held against the plain version;
+(jax_reference.py). Every plain form walks with the barren-descend
+lookahead, as the CUDA kernel's instance of that form does;
+tpu._enum_run has none, and its counts are matched step for step (a
+barren node's sibling step takes the lockstep step of its failing
+child). The CUDA source's f64 primal, dual, sub-solution, combined and
+extended instances are compiled for the host and held against the plain
+version;
 `DeviceEnumerator` against
 `TPUEnumerator`, including the deep-tree search for trees taller than the
 kernel; and the plain f64 tree against the JAX package's TPU stand-in for
@@ -210,8 +211,11 @@ def cached_problem(d, pruned, radius, dual):
 # dual recurrence the subtracted alpha_k * mu is not exact, so
 # fl(fl(a - t) + t) == a does not hold everywhere. Their counts stay
 # exactly equal; the best distance is held to RECORD_RTOL, well inside the
-# Pallas tolerance (tests/test_pallas_parity.py:164-175, 1e-4)
-ULP_DRIFT_CASES = {(F32, True, False, 0), (F64, True, False, 1)}
+# Pallas tolerance (tests/test_pallas_parity.py:164-175, 1e-4). The
+# combined form (dual with sub-solutions) walks the dual trees with the
+# same lookahead and drifts on the same two cases
+ULP_DRIFT_CASES = {(F32, True, False, 0), (F64, True, False, 1),
+                   (F32, True, True, 0), (F64, True, True, 1)}
 
 
 @pytest.mark.parametrize("dtype", [F64, F32], ids=["f64", "f32"])
@@ -224,9 +228,9 @@ def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
     solution counts, bit-equal best distances (to RECORD_RTOL on the
     ULP_DRIFT_CASES), and in count mode the sub-solution records equal per
     level to RECORD_RTOL (their vectors may differ on ties), each valid to
-    1e-12 relative in f64 (1e-5 in f32). Every form but the combined one
-    (dual with sub-solutions, the extended instance's) skips barren
-    descends here, where tpu._enum_run descends and restores; no skipped
+    1e-12 relative in f64 (1e-5 in f32). Every form, the combined one
+    (dual with sub-solutions) too, skips barren descends here, where
+    tpu._enum_run descends and restores; no skipped
     round trip moves a bound test in these cases, so their counts are
     exact too, not only within the Pallas tolerance
     (tests/test_pallas_parity.py:164-175) that such a round trip could
@@ -246,7 +250,7 @@ def test_plain_matches_jax_enum_run(dtype, dual, findsubsols, case):
         assert pb == jb or (drift and abs(pb - jb) <= RECORD_RTOL[dtype] * jb)
         if count_mode and not PROBLEMS[case][1]:
             assert int(pt["sol_count"]) > 0
-        assert (pt["barren_skips"] > 0) == (not (dual and findsubsols))
+        assert pt["barren_skips"] > 0
         if findsubsols:
             mr = prob["m_real"]
             if count_mode:
@@ -262,6 +266,12 @@ def test_wrapper_form_names():
     assert kernels._form(F32, False, False) == "single"
     assert kernels._form(F64, False, False) == "f64"
     assert kernels._form(F32, True, True) == "f32-dual-subsols"
+    assert kernels._walk(True, True) == kernels.WALK_DUAL_SUBSOLS
+    assert kernels._walk(True, False) == kernels.WALK_DUAL
+    assert kernels._walk(False, True) == kernels.WALK_SUBSOLS
+    assert kernels._walk(False, False) == kernels.WALK_PRIMAL
+    assert {kernels._walk(d, s, True) for d in (False, True)
+            for s in (False, True)} == {kernels.WALK_EXT}
     assert set(kernels.LAUNCHES) == set(kernels.FORMS) == \
         set(kernels.PLAIN_RUNS)
 
@@ -318,12 +328,13 @@ def ref_sols(prob, dtype, dual):
 
 # (element type, dual, sub-solutions, extended instance by name): each
 # form of the proved solvers on the instance it launches (the f64 primal,
-# dual and sub-solution instances; the combined form on the extended
-# one), and the same trees on the extended instance by name
+# dual, sub-solution and combined instances), and the same trees on the
+# extended instance by name
 EXT_FORMS = [(F64, False, False, False), (F64, False, False, True),
              (F64, True, False, False), (F64, True, False, True),
              (F64, False, True, False), (F64, False, True, True),
-             (F64, True, True, False), (F32, True, False, False),
+             (F64, True, True, False), (F64, True, True, True),
+             (F32, True, True, False), (F32, True, False, False),
              (F32, True, False, True), (F32, False, True, False),
              (F32, False, True, True)]
 
@@ -345,9 +356,8 @@ def test_host_compiled_extended_instances_match_plain(
     Pallas kernel's tolerance and records to RECORD_RTOL. Search mode:
     the same best distance (unique here). The whole tree under one root
     donates, with the same counts and best as the root queue. Each form
-    runs on its own instance, with the lookahead (the combined form on
-    the extended instance, without it), and by name on the extended
-    instance, without it, each against its own plain walk."""
+    runs on its own instance, with the lookahead, and by name on the
+    extended instance, without it, each against its own plain walk."""
     from test_torch_enum_kernel import assert_counts
 
     prob = cached_problem(*EMU_PROBLEM, dual)

@@ -132,6 +132,30 @@ def test_dual_svp_matches_jax(device_route, kind, d, seed):
     assert xt in (list(xj), [-v for v in xj])
 
 
+def test_dual_svp_subsols_match_jax(device_route):
+    """shortest_vector_pruning(SVP_DUAL, find_subsols=True), no pruning:
+    the combined form (dual with sub-solutions, an unpruned f64 tree in
+    both packages). The same status, the same shortest dual length to
+    1e-9 relative, and per level the same sub-solution distance to
+    RECORD_RTOL (f64 records, which may differ in the last bits) with a
+    vector at the same levels."""
+    from test_torch_enum_f64 import F64, RECORD_RTOL
+
+    bj, bt = bases("uniform", 30, 3)
+    sj, xj, ej = fl.shortest_vector_pruning(bj, [], flags=SVP_DUAL,
+                                            find_subsols=True)
+    with ran("f64-dual-subsols"):
+        st, xt, et = ft.shortest_vector_pruning(bt, [], flags=SVP_DUAL,
+                                                find_subsols=True)
+    assert st == sj == 0
+    assert et.begin()[0] == pytest.approx(ej.begin()[0], rel=1e-9)
+    js, ts = ej.sub_solutions, et.sub_solutions
+    assert len(ts) == len(js) and sum(1 for _, v in ts if v) > 0
+    for (dt, vt), (dj, vj) in zip(ts, js):
+        assert dt == pytest.approx(dj, rel=RECORD_RTOL[F64])
+        assert bool(vt) == bool(vj)
+
+
 @pytest.mark.parametrize("method", [0, CVPM_PROVED], ids=["fast", "proved"])
 @pytest.mark.parametrize("kind,d,seed", CASES[:2], ids=IDS[:2])
 def test_closest_vector_matches_jax(device_route, kind, d, seed, method):

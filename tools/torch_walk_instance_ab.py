@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The dual and sub-solution instances of the enumeration kernel at
-several launch bounds, beside the extended instance, on the card.
+"""The dual, sub-solution and combined (dual with sub-solutions)
+instances of the enumeration kernel at several launch bounds, beside the
+extended instance, on the card.
 
     python tools/torch_walk_instance_ab.py [--macros ENUM_SUBSOLS_F64_MIN_BLOCKS
         ENUM_SUBSOLS_F32_MIN_BLOCKS ENUM_DUAL_F32_MIN_BLOCKS]
@@ -8,15 +9,17 @@ several launch bounds, beside the extended instance, on the card.
 
 Builds fplll_tpu_torch/csrc/enum_chunk.cu once per value, with every
 macro of `--macros` set to it (the source's ENUM_*_MIN_BLOCKS, the
-resident blocks per SM an instance asks ptxas for; one nvcc per value,
-all started together) and
+resident blocks per SM an instance asks ptxas for; the sub-solution
+macros bound the combined instance too; one nvcc per value, all started
+together) and
 prints per build the registers, stack frame and spills (`-Xptxas -v`) of
-the dual, sub-solution and extended instances of both element types, and
-their blocks per SM and walkers at M = 32, 64 and 128 (chip_smoke.py's
-walk_instances). Then, per build in turns (the order reversed every
-other round), times chip_smoke.py's phase-2 trees of the dual and
-sub-solution forms (f32 and f64, d = 40, count mode) on the form's
-instance and on the extended one (kernels._enum_run_extended): the
+the dual, sub-solution, combined and extended instances of both element
+types, and their blocks per SM and walkers at M = 32, 64 and 128
+(chip_smoke.py's walk_instances). Then, per build in turns (the order
+reversed every other round), times chip_smoke.py's phase-2 trees of the
+dual, sub-solution and combined forms (f32 and f64, d = 40, count mode)
+on the form's instance and on the extended one
+(kernels._enum_run_extended): the
 median of `reps` CUDA-event timings of the wrapper, each held against
 the plain version's counts with chip_smoke.compare_counts, with the
 longest work item's steps, the walkers, donations and barren-descend
@@ -37,7 +40,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORMS = (("f32-dual", "f32", True, False, 4),
          ("f64-dual", "f64", True, False, 4),
          ("f32-subsols", "f32", False, True, 3),
-         ("f64-subsols", "f64", False, True, 3))
+         ("f64-subsols", "f64", False, True, 3),
+         ("f32-dual-subsols", "f32", True, True, 4),
+         ("f64-dual-subsols", "f64", True, True, 4))
 
 
 def main() -> int:
