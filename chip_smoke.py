@@ -3042,7 +3042,8 @@ def overlapping(iv, distinct_cards: bool) -> bool:
 
 
 def sweep_stats(trace) -> dict:
-    """What mesh.TRACE recorded: sweeps and steals; per shard its launches
+    """What the recorder's sweeps hold (fplll_tpu_torch.trace, the
+    snapshot's `sweeps`): sweeps and steals; per shard its launches
     per form, its launch-to-collect times (median and largest, ms, host
     clock) and its kernel ms (CUDA events); and, over the sweeps where two
     or more shards launched, in how many two shards' event intervals
@@ -3086,21 +3087,21 @@ def sweep_stats(trace) -> dict:
 
 
 def on_mesh(fn, forms):
-    """fn() with mesh.TRACE recording and the launch counts zeroed just
+    """fn() with the recorder on and the launch counts zeroed just
     before it and read just after it, so that they are the mesh run's
     own: (its result, wall s, sweep_stats with `launches` per form). The
     run must have launched each of `forms`."""
+    from fplll_tpu_torch import trace
     from fplll_tpu_torch.enum import kernels
-    from fplll_tpu_torch.parallel import mesh as tmesh
     kernels.reset_launch_counts()
-    tmesh.TRACE = []
+    trace.start()
     try:
         t0 = time.perf_counter()
         out = fn()
         wall = time.perf_counter() - t0
-        stats = sweep_stats(tmesh.TRACE)
     finally:
-        tmesh.TRACE = None
+        snap = trace.stop()
+    stats = sweep_stats(snap.sweeps)
     stats["launches"] = {k: v for k, v in kernels.LAUNCHES.items() if v}
     stats["extended_launches"] = extended_launch_count()
     for form in forms:

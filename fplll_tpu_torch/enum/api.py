@@ -15,6 +15,7 @@ from __future__ import annotations
 import functools
 from typing import Callable, List, Optional, Sequence
 
+from .. import trace
 from ..torchsetup import resolve_device
 from .cpu import EnumerationDyn
 from .evaluator import Evaluator
@@ -87,6 +88,7 @@ class Enumeration:
             return self._nodes_total
         return self._nodes[level] if level < len(self._nodes) else 0
 
+    @trace.spanned("facade.enumerate")
     def enumerate(self, first: int, last: int, fmaxdist: float,
                   fmaxdistexpo: int = 0,
                   target_coord: Sequence[float] = (),

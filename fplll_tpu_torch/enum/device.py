@@ -26,12 +26,11 @@ from __future__ import annotations
 
 import math
 import os
-import sys
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 
+from .. import trace
 from ..torchsetup import resolve_device, torch
 from .evaluator import EVALSTRATEGY_FIRST_N_SOLUTIONS, Evaluator
 from .kernels import MAX_LEVELS, enum_run, enum_run_grouped
@@ -73,6 +72,7 @@ class DeviceEnumerator:
         self.nodes: np.ndarray = np.zeros(0, dtype=np.int64)
 
     # -- host-side root generation (layered top-tree expansion) -------------
+    @trace.spanned("enum.roots")
     def _gen_roots(self, mut: np.ndarray, rdiag: np.ndarray,
                    prune: np.ndarray, cp0: np.ndarray, A: float,
                    d: int, is_svp: bool, dual: bool = False,
@@ -98,8 +98,9 @@ class DeviceEnumerator:
             # as the level loop below, which runs past its capacity and
             # for what it does not cover (sub-solutions, a start frontier)
             from ..native import native_gen_roots
-            out = native_gen_roots(mut, rdiag, prune, cp0, A, is_svp, dual,
-                                   self.max_device_levels, target)
+            with trace.span("enum.roots.native"):
+                out = native_gen_roots(mut, rdiag, prune, cp0, A, is_svp,
+                                       dual, self.max_device_levels, target)
             if out is not None:
                 xs, als, pd, m, nodes = out
                 self.nodes[:d] += nodes.astype(np.int64)[:d]
@@ -284,6 +285,7 @@ class DeviceEnumerator:
                 "mut_fix": mut_fix_pad, "cp0": cp0_pad, "m": m,
                 "nfix_pad": nfix_pad}
 
+    @trace.spanned("enum.pack")
     def _pack(self, mut, rdiag, prune, cp0, d, roots_x, roots_pd,
               m_real, roots_a=None) -> dict:
         """Sort one root batch and pad it to the kernel buckets. Returns
@@ -306,18 +308,16 @@ class DeviceEnumerator:
         rpd_pad = np.full(R_pad, np.inf)
         rx_pad[:R, :nfix] = roots_x
         rpd_pad[:R] = roots_pd
-
-        def dev(a):
-            return torch.as_tensor(np.ascontiguousarray(a), dtype=self.dtype,
-                                   device=self.device)
-
-        out = {k: dev(v) for k, v in tree.items()}
-        out.update(roots_x=dev(rx_pad), roots_pd=dev(rpd_pad), m=m,
-                   m_real=min(m_real, m))
+        host = dict(tree, roots_x=rx_pad, roots_pd=rpd_pad)
         if roots_a is not None:
-            ra_pad = np.zeros((R_pad, nfix_pad))
-            ra_pad[:R, :nfix] = roots_a[order]
-            out["roots_a"] = dev(ra_pad)
+            host["roots_a"] = np.zeros((R_pad, nfix_pad))
+            host["roots_a"][:R, :nfix] = roots_a[order]
+
+        with trace.span("enum.pack.h2d"):
+            out = {k: torch.as_tensor(np.ascontiguousarray(a),
+                                      dtype=self.dtype, device=self.device)
+                   for k, a in host.items()}
+        out.update(m=m, m_real=min(m_real, m))
         return out
 
     def _launch(self, mut, rdiag, prune, cp0, A, maxdist_in, d, is_svp,
@@ -535,12 +535,15 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
             evaluator.strategy == EVALSTRATEGY_BEST_N_SOLUTIONS and \
             not isinstance(evaluator, CallbackEvaluator):
         from ..native import native_enumerate
-        out = native_enumerate(mut, rdiag, prune,
-                               cp0 if not is_svp else None,
-                               maxdist, is_svp, dual, False,
-                               node_budget=hybrid_budget)
+        with trace.span("facade.first_pass"):
+            out = native_enumerate(mut, rdiag, prune,
+                                   cp0 if not is_svp else None,
+                                   maxdist, is_svp, dual, False,
+                                   node_budget=hybrid_budget)
         if out is not None:
             new_max, best_dist, best_x, _sc, cnodes, visited = out
+            trace.count("first_pass.iters", visited)
+            trace.count("first_pass.nodes", int(np.sum(cnodes)))
             total_nodes[:d] += np.asarray(cnodes).astype(np.int64)
             if best_x is not None:
                 new_max = evaluator.eval_sol([float(v) for v in best_x],
@@ -696,24 +699,15 @@ def _grouped_device_windows(muts, rdiags, prunes, maxdists, device):
         raise ValueError("the grouped launch runs pruned trials only; an "
                          "unpruned tree runs in f64 (tree_dtype)")
     B = int(os.environ.get("FPLLL_TPU_GROUP_BATCH", "1024"))
-    t_start = time.time()
     packed = _pack_grouped(muts, rdiags, prunes, maxdists, device, B)
     if packed is None:
         return None
     tensors, m_reals, total_nodes = packed
-    t_pack = time.time()
     out = enum_run_grouped(**tensors, G_real=G, batch=B)
     dist_g = out["dist"].double().cpu().numpy()
     dev_g = out["dev"].cpu().numpy()
     root_g = out["root"].cpu().numpy()
     nodes = float(out["nodes"].sum())
-    if os.environ.get("FPLLL_TPU_GROUP_DEBUG") is not None:
-        print(f"[grouped] G={G} m={tensors['mut'].shape[1]} "
-              f"R={tensors['roots_pd'].shape[1]} "
-              f"rootgen+pack={t_pack - t_start:.3f}s "
-              f"kernel+get={time.time() - t_pack:.3f}s "
-              f"steps={int(out['steps'])} nodes={nodes:.3g}",
-              file=sys.stderr)
     dists = np.full(G, np.inf)
     sols = np.zeros((G, d))
     total_nodes += nodes
@@ -827,8 +821,6 @@ def _trial_windows(muts, rdiags, prunes, maxdists, device):
     sols = np.zeros((G, m))
     total_nodes = 0.0
     cp0 = np.zeros(m)
-    dbg = os.environ.get("FPLLL_TPU_GROUP_DEBUG") is not None
-    t0 = time.time()
     for g in range(G):
         ev = FastEvaluator(nr_solutions=1)
         enum = _make_enumerator(
@@ -861,9 +853,6 @@ def _trial_windows(muts, rdiags, prunes, maxdists, device):
             d0, x = ev.begin()
             dists[g] = d0
             sols[g, :len(x)] = x
-    if dbg:
-        print(f"[window G={G}] m={m} nodes={total_nodes:.3g} "
-              f"wall={time.time() - t0:.3f}s", file=sys.stderr)
     return dists, sols, total_nodes
 
 

@@ -54,7 +54,13 @@ Counts: ``LAUNCHES`` counts kernel launches per form (``FORMS``) and
 nothing else, ``PLAIN_RUNS`` the wrappers' runs of the plain version,
 ``GRIDS`` the launch geometries (grid, blocks per SM, SMs) per form,
 ``EXTENDED`` the comparison's launches and plain runs per form; node
-counters are int64 (uint64 in the kernel), never f32.
+counters are int64 (uint64 in the kernel), never f32. With the port's
+recorder on (:mod:`fplll_tpu_torch.trace`), :func:`enum_run` and
+:func:`enum_run_grouped` are ``kernels.run`` spans over ``kernels.stage``
+(up to the return of the launch; on CPU tensors the plain version's
+whole run), ``kernels.wait`` and ``kernels.finalize``, and each card
+launch leaves a launch record: CUDA events around the launch call and
+the walk counters, read in one small copy after the wait.
 """
 
 from __future__ import annotations
@@ -62,7 +68,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Optional, Set, Tuple
 
-from .. import cuda_build
+from .. import cuda_build, trace
 from ..torchsetup import torch
 
 __all__ = ["enum_run", "enum_launch", "enum_collect", "enum_run_grouped",
@@ -314,16 +320,29 @@ def _kernel_run(*args, G_real: int, grid: int, **kw) -> dict:
         geo = _geometry(args[0].shape[-1], G_real, args[0].dtype, walk, grid)
         p, out = _prepare(*args, G_real=G_real, walkers=geo["walkers"], **kw)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        if trace.on():
+            out["events"] = (torch.cuda.Event(enable_timing=True),
+                             torch.cuda.Event(enable_timing=True))
+            out["events"][0].record()
         _raise(lib, lib.enum_chunk_launch(ctypes.byref(p), geo["grid"],
                                           stream), "launch")
+        if "events" in out:
+            out["events"][1].record()
     out["geometry"] = geo
     return out
 
 
 def _raise_if_aborted(out: dict, max_steps: int) -> None:
-    if int(out["aborted"].item()):
+    """The wait for a launch: the read of its abort flag."""
+    with trace.span("kernels.wait"):
+        aborted = int(out["aborted"].item())
+    if aborted:
         raise RuntimeError(f"enum_chunk: a walker walked more than "
                            f"{max_steps} nodes; raise max_steps")
+
+
+_WALK_COUNTERS = ("steps", "root_steps", "walk_steps", "donations",
+                  "barren_skips")
 
 
 def _walk_counters(out: dict) -> dict:
@@ -332,8 +351,22 @@ def _walk_counters(out: dict) -> dict:
     donated sibling range), walk_steps (every walker's iterations, so
     that the walkers' busy share is walk_steps / (walkers x steps)),
     donations and barren_skips."""
-    return {k: out[k][0] for k in ("steps", "root_steps", "walk_steps",
-                                   "donations", "barren_skips")}
+    return {k: out[k][0] for k in _WALK_COUNTERS}
+
+
+def _record_launch(out: dict) -> None:
+    """The recorder's record of one card launch (its events are in
+    `out` when the recorder was on at the launch): the walk counters and
+    the nodes' sum, read in one copy after the wait."""
+    if "events" not in out:
+        return
+    vals = torch.cat([out[k] for k in _WALK_COUNTERS] +
+                     [out["nodes"].view(-1)]).tolist()
+    n = len(_WALK_COUNTERS)
+    out["launch"] = trace.record_launch(dict(
+        zip(_WALK_COUNTERS, vals[:n]), form=out["form"],
+        walkers=out["geometry"]["walkers"], nodes=sum(vals[n:]),
+        device=out["nodes"].device.index, events=out.pop("events")))
 
 
 def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
@@ -343,28 +376,30 @@ def _finalize_single(out: dict, roots_x, A0: float, *, count_mode: bool,
     call), and the sub-solution records with their roots' coordinates
     (zero where a level kept its initial record)."""
     _raise_if_aborted(out, max_steps)
-    R, nfix = roots_x.shape
-    K = min(walkers, _K_TOP)
-    negd, idx = torch.topk(-out["bdist"], K)
-    bound = torch.clamp(out["bound"][0], max=float(A0))
-    res = {
-        "nodes": out["nodes"][0],
-        "best_dist": -negd,
-        "best_dev": out["bdev"][idx],
-        "best_root": roots_x[out["bri"][idx].long()],
-        "sol_count": out["sols"][0],
-        "A": float(A0) if count_mode else bound,
-        "cursor": torch.clamp(out["cursor"][0], max=R),
-        **_walk_counters(out),
-        "geometry": out.get("geometry"),
-    }
-    if "ss_dist" in out:
-        ri = out["ss_root"][0].long()
-        res["subsol_dist"] = out["ss_dist"][0]
-        res["subsol_vec"] = out["ss_vec"][0]
-        res["subsol_root"] = torch.where(
-            (ri >= 0)[:, None], roots_x[torch.clamp(ri, min=0)],
-            torch.zeros((), dtype=roots_x.dtype, device=roots_x.device))
+    with trace.span("kernels.finalize"):
+        R, nfix = roots_x.shape
+        K = min(walkers, _K_TOP)
+        negd, idx = torch.topk(-out["bdist"], K)
+        bound = torch.clamp(out["bound"][0], max=float(A0))
+        res = {
+            "nodes": out["nodes"][0],
+            "best_dist": -negd,
+            "best_dev": out["bdev"][idx],
+            "best_root": roots_x[out["bri"][idx].long()],
+            "sol_count": out["sols"][0],
+            "A": float(A0) if count_mode else bound,
+            "cursor": torch.clamp(out["cursor"][0], max=R),
+            **_walk_counters(out),
+            "geometry": out.get("geometry"),
+        }
+        if "ss_dist" in out:
+            ri = out["ss_root"][0].long()
+            res["subsol_dist"] = out["ss_dist"][0]
+            res["subsol_vec"] = out["ss_vec"][0]
+            res["subsol_root"] = torch.where(
+                (ri >= 0)[:, None], roots_x[torch.clamp(ri, min=0)],
+                torch.zeros((), dtype=roots_x.dtype, device=roots_x.device))
+        _record_launch(out)
     return res
 
 
@@ -372,26 +407,30 @@ def _finalize_grouped(out: dict, roots_x, A0, *, walkers: int,
                       max_steps: int) -> dict:
     """Each problem's best walker, unpacked with its root."""
     _raise_if_aborted(out, max_steps)
-    G = roots_x.shape[0]
-    ar = torch.arange(G, device=roots_x.device)
-    bd = out["bdist"].view(G, walkers)
-    lane = torch.argmin(bd, dim=1)
-    cols = ar * walkers + lane
-    return {
-        "dist": bd[ar, lane],
-        "dev": out["bdev"][cols],
-        "root": roots_x[ar, out["bri"][cols].long()],
-        "nodes": out["nodes"].sum(dim=0),
-        "A": torch.clamp(A0, max=out["bound"][0]),
-        "bound": out["bound"][0],
-        **_walk_counters(out),
-        "geometry": out.get("geometry"),
-    }
+    with trace.span("kernels.finalize"):
+        G = roots_x.shape[0]
+        ar = torch.arange(G, device=roots_x.device)
+        bd = out["bdist"].view(G, walkers)
+        lane = torch.argmin(bd, dim=1)
+        cols = ar * walkers + lane
+        res = {
+            "dist": bd[ar, lane],
+            "dev": out["bdev"][cols],
+            "root": roots_x[ar, out["bri"][cols].long()],
+            "nodes": out["nodes"].sum(dim=0),
+            "A": torch.clamp(A0, max=out["bound"][0]),
+            "bound": out["bound"][0],
+            **_walk_counters(out),
+            "geometry": out.get("geometry"),
+        }
+        _record_launch(out)
+    return res
 
 
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
+@trace.spanned("kernels.run")
 def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
              *, m: int, is_svp: bool, count_mode: bool,
              max_steps: int = 1 << 30, batch: int = 1024,
@@ -424,11 +463,13 @@ def enum_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
     min(walkers, 128) on the card.
 
     The composition of :func:`enum_launch` and :func:`enum_collect`."""
-    return enum_collect(enum_launch(
-        mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m=m,
-        is_svp=is_svp, count_mode=count_mode, max_steps=max_steps,
-        batch=batch, m_real=m_real, grid=grid, roots_a=roots_a, dual=dual,
-        findsubsols=findsubsols))
+    with trace.span("kernels.stage"):
+        launched = enum_launch(
+            mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0, m=m,
+            is_svp=is_svp, count_mode=count_mode, max_steps=max_steps,
+            batch=batch, m_real=m_real, grid=grid, roots_a=roots_a,
+            dual=dual, findsubsols=findsubsols)
+    return enum_collect(launched)
 
 
 def enum_launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
@@ -496,6 +537,7 @@ def _launch(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0: float,
         count_mode=count_mode, max_steps=max_steps,
         roots_a=None if roots_a is None else roots_a[None], dual=dual,
         findsubsols=findsubsols, m_real_range=(mr, mr), ext=ext)
+    out["form"] = "ext-" + form if ext else form
     if ext:
         EXTENDED["launches"][form] += 1
     else:
@@ -519,6 +561,7 @@ def enum_collect(launched: dict) -> dict:
                             max_steps=launched["max_steps"])
 
 
+@trace.spanned("kernels.run")
 def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
                      m_real, *, G_real: int, batch: int = 1024,
                      is_svp: bool = True, max_steps: int = 1 << 30,
@@ -540,20 +583,24 @@ def enum_run_grouped(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd, A0,
     walker whose problem's queue has drained moves on to another real
     problem (padding problems are never scheduled)."""
     dev = mut.device
-    if dev.type == "cpu":
-        PLAIN_RUNS["grouped"] += 1
-        return enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0,
-                                       roots_x, roots_pd, A0, G_real=G_real,
-                                       batch=batch, is_svp=is_svp,
-                                       max_steps=max_steps)
-    if dev.type != "cuda":
-        raise ValueError(f"enum_run_grouped: unsupported device {dev}")
-    out = _kernel_run(mut, rdiag, prune, mut_fix, cp0, roots_x, roots_pd,
-                      A0, m_real, G_real=G_real, grid=grid,
-                      is_svp=is_svp, count_mode=False, max_steps=max_steps)
-    LAUNCHES["grouped"] += 1
-    geo = out["geometry"]
-    GRIDS["grouped"].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
+    with trace.span("kernels.stage"):
+        if dev.type == "cpu":
+            PLAIN_RUNS["grouped"] += 1
+            return enum_run_grouped_plain(mut, rdiag, prune, mut_fix, cp0,
+                                           roots_x, roots_pd, A0,
+                                           G_real=G_real, batch=batch,
+                                           is_svp=is_svp,
+                                           max_steps=max_steps)
+        if dev.type != "cuda":
+            raise ValueError(f"enum_run_grouped: unsupported device {dev}")
+        out = _kernel_run(mut, rdiag, prune, mut_fix, cp0, roots_x,
+                          roots_pd, A0, m_real, G_real=G_real, grid=grid,
+                          is_svp=is_svp, count_mode=False,
+                          max_steps=max_steps)
+        out["form"] = "grouped"
+        LAUNCHES["grouped"] += 1
+        geo = out["geometry"]
+        GRIDS["grouped"].add((geo["grid"], geo["blocks_per_sm"], geo["sms"]))
     return _finalize_grouped(out, roots_x, A0, walkers=geo["walkers"],
                              max_steps=max_steps)
 

@@ -25,6 +25,17 @@ mesh (CPU shards run one after another).
   mode; count mode keeps its radius), advances the cursors, trims roots
   the bound has killed, applies the work-stealing plan and stops when no
   shard has work. A stale bound is correct but wasteful, as in enumlib.
+
+With the port's recorder on (:mod:`fplll_tpu_torch.trace`), each sweep is
+one ``mesh.sweep`` span and leaves one list of shard records in the
+snapshot's ``sweeps``: per launching shard its shard, form, roots,
+nodes, steps, launch_to_collect_ms on the host clock and whether it
+stole after the sweep; on a card also its device, kernel_ms and start_s /
+end_s, the CUDA events around its launch call placed on the host clock.
+A shard that launched nothing in the sweep (drained earlier) and stole
+after it has {shard, stole: True}. On distinct cards the interval is the
+kernel's run; on streams of one card it also holds the time a kernel
+waits for SMs that another stream's persistent grid holds.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from typing import List, Optional
 
 import numpy as np
 
+from .. import trace
 from ..enum.device import DeviceEnumerator
 from ..enum.kernels import MAX_LEVELS, _K_TOP, _form, enum_collect, enum_launch
 from ..torchsetup import resolve_device, torch
@@ -46,21 +58,6 @@ STEAL_MIN_ROOTS = 64
 # a shard's slice grows at most this many times from one sweep to the
 # next
 GROW = 4
-
-# Set to a list to record every sweep: one list per sweep, one dict per
-# launching shard (shard, form, roots, nodes, steps, launch_to_collect_ms
-# on the host clock, and whether the shard stole after the sweep), and
-# {shard, stole: True} for a shard that launched nothing in the sweep
-# (drained earlier) and stole after it. On a
-# card also its device, and kernel_ms between CUDA events recorded on the
-# shard's stream around its launch; start_s / end_s place those events
-# on the host clock through one reference event per card and sweep,
-# recorded and waited for before the sweep's first launch. On distinct
-# cards the interval is the kernel's run; on streams of one card it also
-# holds the time a kernel waits for SMs that another stream's persistent
-# grid holds.
-TRACE: Optional[list] = None
-
 
 class MeshDecline(ValueError):
     """The documented refusals of :func:`mesh_enumerate_trials`: more
@@ -234,88 +231,71 @@ def _sweeps(mesh: EnumMesh, shards: List[_Shard], A: float, *, batch: int,
         busy = [i for i, s in enumerate(shards) if s.cursor < s.end]
         if not busy:
             return A, sweeps, steals
-        refs = {} if TRACE is None else _reference_events(mesh, busy)
-        launched = []
-        for i in busy:
-            s = shards[i]
-            lo, hi = s.cursor, min(s.end, s.cursor + s.take)
-            with mesh.on(i):
-                ev = None
-                if mesh.devices[i] in refs:
-                    ev = [torch.cuda.Event(enable_timing=True)
-                          for _ in range(2)]
-                    ev[0].record()
-                t0 = time.perf_counter()
-                h = s.launch(lo, hi, A, batch=batch, count_mode=count_mode,
-                             **kw)
-                if ev is not None:
-                    ev[1].record()
-            launched.append((i, lo, hi, h, t0, ev))
-        rec, walks = [], []
-        for i, lo, hi, h, t0, ev in launched:
-            s = shards[i]
-            with mesh.on(i):
-                out = enum_collect(h)
-                walks.append(int(out["steps"]))
-                nodes = s.absorb(out, K)
-            s.cursor = hi
-            if TRACE is not None:
-                r = {"shard": i, "form": _form(s.t["mut"].dtype,
-                                               kw.get("dual", False),
-                                               kw.get("findsubsols", False)),
-                     "roots": hi - lo, "nodes": nodes, "steps": walks[-1],
-                     "launch_to_collect_ms":
-                         (time.perf_counter() - t0) * 1e3}
-                if ev is not None:
-                    ref, t_ref = refs[mesh.devices[i]]
-                    r.update(device=str(mesh.devices[i]),
-                             kernel_ms=ev[0].elapsed_time(ev[1]),
-                             start_s=t_ref + ref.elapsed_time(ev[0]) * 1e-3,
-                             end_s=t_ref + ref.elapsed_time(ev[1]) * 1e-3)
-                rec.append(r)
-        # the next slices fill the sweep: it lasts as long as its longest
-        # walk (at least `steps`), so a shard whose slice walked less takes
-        # proportionally more roots, at least `batch` (one per lane of the
-        # plain version) and at most GROW times as many
-        horizon = max([steps] + walks)
-        for (i, lo, hi, *_), w in zip(launched, walks):
-            shards[i].take = int(max(batch, min(
-                GROW * (hi - lo), (hi - lo) * horizon // max(w, 1))))
+        with trace.span("mesh.sweep"):
+            A, stole = _sweep(mesh, shards, busy, A, K, batch=batch,
+                              steps=steps, steal=steal,
+                              count_mode=count_mode, **kw)
         sweeps += 1
-        if not count_mode:
-            A = min([A] + [float(s.bd[0]) for s in shards if len(s.bd)])
-            for s in shards:
-                s.trim(A)
-        stole = np.zeros(len(shards), dtype=bool)
-        if steal:
-            cur, end, stole = _steal_plan([s.cursor for s in shards],
-                                          [s.end for s in shards],
-                                          np.full(len(shards), batch))
-            for s, c, e in zip(shards, cur, end):
-                s.cursor, s.end = int(c), int(e)
-            steals += int(stole.sum())
-        if TRACE is not None:
-            for r in rec:
-                r["stole"] = bool(stole[r["shard"]])
-            idle = set(np.flatnonzero(stole)) - {r["shard"] for r in rec}
-            TRACE.append(rec + [{"shard": int(i), "stole": True}
-                                for i in sorted(idle)])
+        steals += int(stole.sum())
 
 
-def _reference_events(mesh: EnumMesh, busy) -> dict:
-    """For TRACE: per card of the busy shards, an event recorded on an
-    idle stream and waited for, with the host clock just after it; the
-    card's later events are placed on the host clock from it."""
-    refs = {}
+def _sweep(mesh: EnumMesh, shards: List[_Shard], busy: List[int], A: float,
+           K: int, *, batch: int, steps: int, steal: bool, count_mode: bool,
+           **kw):
+    """One sweep over the `busy` shards; returns (the new bound, which
+    shards stole after it)."""
+    tracing = trace.on()
+    launched = []
     for i in busy:
-        dev = mesh.devices[i]
-        if dev.type == "cuda" and dev not in refs:
-            with mesh.on(i):
-                ref = torch.cuda.Event(enable_timing=True)
-                ref.record()
-                ref.synchronize()
-                refs[dev] = (ref, time.perf_counter())
-    return refs
+        s = shards[i]
+        lo, hi = s.cursor, min(s.end, s.cursor + s.take)
+        with mesh.on(i):
+            t0 = time.perf_counter() if tracing else 0.0
+            h = s.launch(lo, hi, A, batch=batch, count_mode=count_mode, **kw)
+        launched.append((i, lo, hi, h, t0))
+    rec, walks = [], []
+    for i, lo, hi, h, t0 in launched:
+        s = shards[i]
+        with mesh.on(i):
+            out = enum_collect(h)
+            walks.append(int(out["steps"]))
+            nodes = s.absorb(out, K)
+        s.cursor = hi
+        if tracing:
+            rec.append({"shard": i, "form": _form(s.t["mut"].dtype,
+                                                  kw.get("dual", False),
+                                                  kw.get("findsubsols", False)),
+                        "roots": hi - lo, "nodes": nodes, "steps": walks[-1],
+                        "launch_to_collect_ms":
+                            (time.perf_counter() - t0) * 1e3})
+            if h.get("raw", {}).get("launch") is not None:
+                rec[-1]["launch"] = h["raw"]["launch"]
+    # the next slices fill the sweep: it lasts as long as its longest
+    # walk (at least `steps`), so a shard whose slice walked less takes
+    # proportionally more roots, at least `batch` (one per lane of the
+    # plain version) and at most GROW times as many
+    horizon = max([steps] + walks)
+    for (i, lo, hi, *_), w in zip(launched, walks):
+        shards[i].take = int(max(batch, min(
+            GROW * (hi - lo), (hi - lo) * horizon // max(w, 1))))
+    if not count_mode:
+        A = min([A] + [float(s.bd[0]) for s in shards if len(s.bd)])
+        for s in shards:
+            s.trim(A)
+    stole = np.zeros(len(shards), dtype=bool)
+    if steal:
+        cur, end, stole = _steal_plan([s.cursor for s in shards],
+                                      [s.end for s in shards],
+                                      np.full(len(shards), batch))
+        for s, c, e in zip(shards, cur, end):
+            s.cursor, s.end = int(c), int(e)
+    if tracing:
+        for r in rec:
+            r["stole"] = bool(stole[r["shard"]])
+        idle = set(np.flatnonzero(stole)) - {r["shard"] for r in rec}
+        trace.record_sweep(rec + [{"shard": int(i), "stole": True}
+                                  for i in sorted(idle)])
+    return A, stole
 
 
 def _queue(roots_x, roots_pd, order, nfixp: int, dtype, roots_a=None):

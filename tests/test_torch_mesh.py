@@ -46,6 +46,7 @@ from fplll_tpu_torch.nr.fctx import MPCtx
 from fplll_tpu_torch.nr.rng import RandGen
 from fplll_tpu_torch.ops import gen
 from fplll_tpu_torch.parallel import mesh as tmesh
+from fplll_tpu_torch import trace as ttrace
 from jax_reference import jax_native_cores  # noqa: F401 (autouse)
 
 os.environ.setdefault("FPLLL_TORCH_DEVICE", "cpu")
@@ -247,11 +248,12 @@ def test_sharded_search_matches_jax_and_oracle(cpu_mesh, jax_mesh, d, seed):
 
 
 def test_trace_records_every_sweep_and_steal(cpu_mesh, monkeypatch):
-    """mesh.TRACE holds one entry per sweep and every steal the
+    """The recorder's sweeps hold one entry per sweep and every steal the
     enumerator counts, also a steal by a shard that launched nothing in
     that sweep (drained earlier; chip_smoke.py phase 7 holds the trace to
-    the counters). Such a steal is forced by a steal plan that also flags
-    every drained shard as a thief while leaving the ranges as they are."""
+    the counters), and one mesh.sweep span per sweep. Such a steal is
+    forced by a steal plan that also flags every drained shard as a thief
+    while leaving the ranges as they are."""
     plan = tmesh._steal_plan
 
     def plan_with_idle_thieves(cursor, own_end, n_dead):
@@ -261,12 +263,16 @@ def test_trace_records_every_sweep_and_steal(cpu_mesh, monkeypatch):
 
     monkeypatch.setattr(tmesh, "_steal_plan", plan_with_idle_thieves)
     mut, rdiag, A = qary_tree(30, 9, 1.3)
-    monkeypatch.setattr(tmesh, "TRACE", [])
     se = tmesh.ShardedEnumerator(cpu_mesh, batch_per_device=8,
                                  steps_per_sweep=64)
-    se.enumerate(mut, rdiag, None, np.zeros(30), A, True, FastEvaluator(),
-                 count_mode=True)
-    trace = tmesh.TRACE
+    ttrace.start()
+    try:
+        se.enumerate(mut, rdiag, None, np.zeros(30), A, True,
+                     FastEvaluator(), count_mode=True)
+    finally:
+        snap = ttrace.stop()
+    trace = snap.sweeps
+    assert len(snap.named("mesh.sweep")) == se.sweeps
     idle = [r for sweep in trace for r in sweep if "form" not in r]
     assert len(trace) == se.sweeps
     assert sum(r["stole"] for sweep in trace for r in sweep) == \
