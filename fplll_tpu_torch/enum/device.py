@@ -436,6 +436,34 @@ def unpruned(prune) -> bool:
     return prune is None or bool(np.all(np.asarray(prune) == 1.0))
 
 
+def gh_squared(rdiag) -> float:
+    """The squared Gaussian-heuristic length of a window's lattice, from
+    its squared Gram-Schmidt norms: the expected squared length of its
+    shortest vector."""
+    d = len(rdiag)
+    return math.exp(float(np.mean(np.log(rdiag))) -
+                    2.0 * (d / 2.0 * math.log(math.pi) -
+                           math.lgamma(d / 2.0 + 1.0)) / d)
+
+
+def skips_first_pass(device, rdiag, prune, maxdist, gh2, budget,
+                     certified=False) -> bool:
+    """Whether the facade sends a search straight to the card, without
+    its budgeted native first pass. The pass pays off only when it
+    finishes the tree (no launch) or hands the card a much tighter bound;
+    it can do neither for a pruned (f32) search on a card whose radius is
+    already within 1.25 of the window's squared Gaussian heuristic `gh2`
+    and whose tree is estimated past 2.5 times the budget (the C tour's
+    own escalation factor, bkz_core.c), so there the card walks the
+    whole tree from the root instead of after a host walk it repeats.
+    Everything else keeps the pass: a CPU device (its card is the plain
+    version), unpruned and certified searches, large radii (CVP), and
+    trees the budget may finish."""
+    return (device.type == "cuda" and tree_dtype(prune, certified) is _F32
+            and maxdist <= 1.25 * gh2
+            and gh_tree_estimate(rdiag, prune, maxdist) > 2.5 * budget)
+
+
 def tree_dtype(prune, certified: bool = False):
     """The element type of one search's tree, fixed by what its caller
     needs: f64 where the answer must be exact, an unpruned search or a
@@ -518,22 +546,29 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
 
     prune = np.asarray(pruning, dtype=np.float64) if len(pruning) else None
     total_nodes = np.zeros(d, dtype=np.int64)
+    gh2 = gh_squared(rdiag)
+    certified = isinstance(evaluator, ErrorBoundedEvaluator)
 
     # Budgeted native-first hybrid: a window whose whole tree fits a few
     # milliseconds of the sequential C core never pays the device launch
     # latency; a bigger tree escalates to the batched kernel with the
     # native pass's tightened bound and incumbent carried over (the
     # crossover policy replacing enumlib's dim<=10 fallback,
-    # fplll/enum-parallel/enumlib.cpp:93-105). The
+    # fplll/enum-parallel/enumlib.cpp:93-105). A tree predictably past
+    # the crossover goes straight to the card (skips_first_pass). The
     # default budgets are the JAX package's (2M with a card, 64M for the
     # CPU's plain version), kept until re-measured on the card.
     default_budget = 2_000_000 if device.type == "cuda" else 64_000_000
     hybrid_budget = int(os.environ.get("FPLLL_TPU_HYBRID_NODES",
                                        str(default_budget)))
-    if not count_mode and hybrid_budget > 0 and \
-            not evaluator.findsubsols and evaluator.max_sols == 1 and \
-            evaluator.strategy == EVALSTRATEGY_BEST_N_SOLUTIONS and \
-            not isinstance(evaluator, CallbackEvaluator):
+    first_pass = not count_mode and hybrid_budget > 0 and \
+        not evaluator.findsubsols and evaluator.max_sols == 1 and \
+        evaluator.strategy == EVALSTRATEGY_BEST_N_SOLUTIONS and \
+        not isinstance(evaluator, CallbackEvaluator)
+    if first_pass and skips_first_pass(device, rdiag, prune, maxdist, gh2,
+                                       hybrid_budget, certified):
+        trace.count("first_pass.skipped")
+    elif first_pass:
         from ..native import native_enumerate
         with trace.span("facade.first_pass"):
             out = native_enumerate(mut, rdiag, prune,
@@ -570,9 +605,6 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     # beyond the expected solution distance (standalone CVP bounds of
     # sum r_ii), search a GH-sized ball first and grow on failure. Retrying
     # up to the original bound preserves completeness.
-    gh2 = math.exp(float(np.mean(np.log(rdiag))) -
-                   2.0 * (d / 2.0 * math.log(math.pi) -
-                          math.lgamma(d / 2.0 + 1.0)) / d)
     trial = maxdist
     if not count_mode and maxdist > 4.0 * gh2:
         trial = min(gh2 / 16.0, maxdist)
@@ -582,7 +614,7 @@ def device_external_enumerator(gso, evaluator, first, last, fmaxdist,
     # evaluator ranks candidates by them. Pruned searches (BKZ windows)
     # keep f32. The JAX package's TPU stand-in for f64, compensated f32
     # pairs, has no role here.
-    dtype = tree_dtype(prune, isinstance(evaluator, ErrorBoundedEvaluator))
+    dtype = tree_dtype(prune, certified)
     while True:
         enum = _make_enumerator(gh_tree_estimate(rdiag, prune, trial),
                                 device=device, dtype=dtype)

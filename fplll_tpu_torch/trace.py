@@ -19,7 +19,10 @@ The port's spans and counters, and who reads them:
 - ``facade.enumerate``: the request's root (``enum/api.py``);
 - ``facade.first_pass``, with the counters ``first_pass.iters`` (the C
   core's loop iterations, its budget's unit) and ``first_pass.nodes``
-  (the nodes it counts per level, summed);
+  (the nodes it counts per level, summed); the counter
+  ``first_pass.skipped``, once per facade call that sends its search
+  straight to the card without the first pass
+  (``enum/device.py:skips_first_pass``);
 - ``enum.roots`` > ``enum.roots.native``: root generation and the native
   expansion in it; ``enum.pack`` > ``enum.pack.h2d``: the sort and pad,
   and the copies to the device;
