@@ -26,11 +26,13 @@ from __future__ import annotations
 
 import math
 import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
 
 from .. import trace
+from ..native import native_pack_roots
 from ..torchsetup import resolve_device, torch
 from .evaluator import EVALSTRATEGY_FIRST_N_SOLUTIONS, Evaluator
 from .kernels import MAX_LEVELS, enum_run, enum_run_grouped
@@ -102,6 +104,7 @@ class DeviceEnumerator:
                 out = native_gen_roots(mut, rdiag, prune, cp0, A, is_svp,
                                        dual, self.max_device_levels, target)
             if out is not None:
+                trace.count("enum.frontier.native")
                 xs, als, pd, m, nodes = out
                 self.nodes[:d] += nodes.astype(np.int64)[:d]
                 return xs, als, pd, m
@@ -161,6 +164,7 @@ class DeviceEnumerator:
             lvl -= 1
         m = lvl + 1
         keep = pd <= A
+        trace.count("enum.frontier.python")
         # each level was prepended at column 0, so columns are already in
         # ascending level order m..d-1
         return xs[keep], als[keep], pd[keep], m
@@ -288,35 +292,35 @@ class DeviceEnumerator:
     @trace.spanned("enum.pack")
     def _pack(self, mut, rdiag, prune, cp0, d, roots_x, roots_pd,
               m_real, roots_a=None) -> dict:
-        """Sort one root batch and pad it to the kernel buckets. Returns
-        the tensors of enum_run (on this enumerator's device, in its
-        dtype) with the padded height m and the real height m_real;
+        """Sort one root batch and pad it to the kernel buckets, in this
+        enumerator's dtype: the tree's arrays and the root queue (stably
+        sorted by pd, native_pack_roots) are written into the device's
+        staging buffer and copied to the device at once. Returns the
+        tensors of enum_run (views of that copy, on this enumerator's
+        device) with the padded height m and the real height m_real;
         roots_a (what the roots feed the center sums under dual) rides
         along when given."""
-        order = np.argsort(roots_pd)
-        roots_x, roots_pd = roots_x[order], roots_pd[order]
-        nfix = d - m_real
         tree = self._pack_tree(mut, rdiag, prune, cp0, d, m_real)
         m, nfix_pad = tree.pop("m"), tree.pop("nfix_pad")
         # root queue padded to a power-of-two bucket (>= one batch);
         # padding roots are dead (+inf)
-        R = len(roots_pd)
         R_pad = max(1024, self.pin_R)
-        while R_pad < R:
+        while R_pad < len(roots_pd):
             R_pad *= 2
-        rx_pad = np.zeros((R_pad, nfix_pad))
-        rpd_pad = np.full(R_pad, np.inf)
-        rx_pad[:R, :nfix] = roots_x
-        rpd_pad[:R] = roots_pd
-        host = dict(tree, roots_x=rx_pad, roots_pd=rpd_pad)
+        shapes = {k: a.shape for k, a in tree.items()}
+        shapes["roots_x"] = (R_pad, nfix_pad)
         if roots_a is not None:
-            host["roots_a"] = np.zeros((R_pad, nfix_pad))
-            host["roots_a"][:R, :nfix] = roots_a[order]
-
-        with trace.span("enum.pack.h2d"):
-            out = {k: torch.as_tensor(np.ascontiguousarray(a),
-                                      dtype=self.dtype, device=self.device)
-                   for k, a in host.items()}
+            shapes["roots_a"] = (R_pad, nfix_pad)
+        shapes["roots_pd"] = (R_pad,)
+        stage = _staging(self.device)
+        with stage.lock:
+            host = stage.views(shapes, self.dtype)
+            for k, a in tree.items():
+                host[k][...] = a
+            native_pack_roots(roots_x, roots_a, roots_pd, host["roots_x"],
+                              host.get("roots_a"), host["roots_pd"])
+            with trace.span("enum.pack.h2d"):
+                out = stage.copy_in()
         out.update(m=m, m_real=min(m_real, m))
         return out
 
@@ -382,6 +386,81 @@ class DeviceEnumerator:
             for lvl, (dist, tail) in sorted(host_subsols.items()):
                 full = [0.0] * lvl + [float(v) for v in tail]
                 evaluator.eval_sub_sol(lvl, full, dist)
+
+
+class _Staging:
+    """One device's staging of launch inputs: a host buffer (pinned for
+    a card), made at the device's first launch and grown when a launch
+    needs more, into which _pack writes the inputs as 256-byte-aligned
+    segments of one element type; one copy then moves them into a fresh
+    block of the device's caching allocator, so that a launch still in
+    flight keeps its own inputs. The host buffer is written under `lock`,
+    after the event recorded behind the last copy out of it."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.lock = threading.Lock()
+        self.host = torch.empty(0, dtype=torch.uint8)
+        self.copied = None          # the CUDA event behind the last copy
+        self.layout = None
+
+    def views(self, shapes: dict, dtype) -> dict:
+        """NumPy views of the host buffer of the given shapes and dtype,
+        once the last copy out of it has ended; grows it when too
+        small."""
+        size = np.dtype(_NUMPY[dtype]).itemsize
+        offs, n = {}, 0
+        for k, shape in shapes.items():
+            offs[k] = n
+            n += -(-math.prod(shape) * size // _ALIGN) * _ALIGN
+        if self.copied is not None:
+            self.copied.synchronize()
+            self.copied = None
+        if self.host.numel() < n:
+            self.host = torch.empty(max(n, 2 * self.host.numel()),
+                                    dtype=torch.uint8,
+                                    pin_memory=self.device.type == "cuda")
+            trace.count("enum.stage.grown")
+        self.layout = (n, offs, shapes, dtype)
+        flat = self.host.numpy()[:n].view(_NUMPY[dtype])
+        return {k: flat[o // size:o // size + math.prod(shapes[k])]
+                .reshape(shapes[k]) for k, o in offs.items()}
+
+    def copy_in(self) -> dict:
+        """The segments of the last views() copied to the device in one
+        copy; tensors of the same shapes viewing the device's block."""
+        n, offs, shapes, dtype = self.layout
+        card = torch.empty(n, dtype=torch.uint8, device=self.device)
+        card.copy_(self.host[:n], non_blocking=True)
+        if self.device.type == "cuda":
+            self.copied = torch.cuda.Event()
+            self.copied.record(torch.cuda.current_stream(self.device))
+        flat, size = card.view(dtype), np.dtype(_NUMPY[dtype]).itemsize
+        return {k: flat.as_strided(shapes[k], _strides(shapes[k]), o // size)
+                for k, o in offs.items()}
+
+
+_ALIGN = 256
+_NUMPY = {_F32: np.float32, _F64: np.float64}
+_STAGING: dict = {}
+_STAGING_LOCK = threading.Lock()
+
+
+def _strides(shape) -> tuple:
+    """Row-major strides of `shape`, in elements."""
+    out, step = [], 1
+    for dim in reversed(shape):
+        out.append(step)
+        step *= dim
+    return tuple(reversed(out))
+
+
+def _staging(device: torch.device) -> _Staging:
+    with _STAGING_LOCK:
+        st = _STAGING.get(device)
+        if st is None:
+            st = _STAGING[device] = _Staging(device)
+        return st
 
 
 # ---------------------------------------------------------------------------
@@ -660,8 +739,7 @@ def _pack_grouped(muts, rdiags, prunes, maxdists, device, batch: int):
             np.asarray(muts[g], np.float64), np.asarray(rdiags[g],
                                                         np.float64),
             np.asarray(prunes[g], np.float64), cp0, A_g, d, True)
-        order = np.argsort(rpd)
-        per_group.append((rx[order], rpd[order], m_real, A_g))
+        per_group.append((rx, rpd, m_real, A_g))
         host_nodes += float(enum.nodes.sum())
         nfix_max = max(nfix_max, d - m_real)
         R_max = max(R_max, len(rpd))
@@ -691,9 +769,9 @@ def _pack_grouped(muts, rdiags, prunes, maxdists, device, batch: int):
         prune_all[g, :m_real] = prunes[g][:m_real]
         if nfix:
             mut_fix_all[g, :m_real, :nfix] = muts[g][:m_real, m_real:d]
-        if len(rpd):
-            rx_all[g, :len(rpd), :nfix] = rx
-            rpd_all[g, :len(rpd)] = np.where(np.isfinite(rpd), rpd, 1e30)
+        native_pack_roots(rx, None, np.where(np.isfinite(rpd), rpd, 1e30),
+                          rx_all[g], None, rpd_all[g])
+        rpd_all[g, len(rpd):] = 1e30
         A0s[g] = A_g
         mrs[g] = m_real
 

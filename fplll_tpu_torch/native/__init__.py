@@ -99,9 +99,16 @@ def _build() -> ctypes.CDLL:
     lib.enum_gen_roots.argtypes = [
         ctypes.c_int, dptr, dptr, ctypes.c_void_p, dptr,
         ctypes.c_double, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_long, ctypes.c_long, ctypes.c_int,
-        dptr, ctypes.c_void_p, dptr, dptr,
+        ctypes.c_long, ctypes.c_long, ctypes.c_int, dptr,
         ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_long),
+    ]
+    lib.enum_roots_take.restype = None
+    lib.enum_roots_take.argtypes = [dptr, ctypes.c_void_p, dptr]
+    lib.enum_roots_pack.restype = ctypes.c_int
+    lib.enum_roots_pack.argtypes = [
+        ctypes.c_long, ctypes.c_int, dptr, ctypes.c_void_p, dptr,
+        ctypes.c_long, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     return lib
 
@@ -145,11 +152,11 @@ def native_enumerate(mut: np.ndarray, rdiag: np.ndarray,
             best_x if res.found else None, res.sol_count, nodes, res.visited)
 
 
-# Scratch buffers for the native root expansion (np.empty pages are only
-# touched for rows actually produced).  ctypes releases the GIL for the
-# duration of lib.enum_gen_roots, so concurrent host threads could race
-# on the shared buffers — the lock is held across the C call.
-_ROOTS_SCRATCH: dict = {}
+# The native root expansion keeps its node records, its frontier and its
+# sort's keys in scratch shared by every call (enum_core.c, grown, never
+# shrunk). ctypes releases the GIL for the duration of each C call, so
+# concurrent host threads could race on it: the lock is held across every
+# call that uses it.
 _ROOTS_LOCK = __import__("threading").Lock()
 
 
@@ -159,11 +166,12 @@ def native_gen_roots(mut: np.ndarray, rdiag: np.ndarray,
                      max_device_levels: int, target: int,
                      cap: int = 1 << 19, nfix_max: int = 24):
     """Native layered top-tree expansion (enum_core.c:enum_gen_roots).
-    Returns (roots_x, roots_a, roots_pd, m_real, nodes_per_level) or None
-    when over capacity (callers use the host expansion)."""
+    Returns (roots_x, roots_a, roots_pd, m_real, nodes_per_level), the
+    roots as float64 rows in expansion order (roots_a is roots_x unless
+    `dual`), or None when over capacity (callers use the host
+    expansion)."""
     lib = get_lib()
     d = len(rdiag)
-    key = (cap, nfix_max, bool(dual))
     nodes = np.zeros(d, dtype=np.float64)
     mut = np.ascontiguousarray(mut, dtype=np.float64)
     rdiag = np.ascontiguousarray(rdiag, dtype=np.float64)
@@ -173,30 +181,55 @@ def native_gen_roots(mut: np.ndarray, rdiag: np.ndarray,
     m_real = ctypes.c_int(0)
     count = ctypes.c_long(0)
     with _ROOTS_LOCK:
-        bufs = _ROOTS_SCRATCH.get(key)
-        if bufs is None:
-            bufs = (np.empty((cap, nfix_max)),
-                    np.empty((cap, nfix_max)) if dual else None,
-                    np.empty(cap))
-            _ROOTS_SCRATCH[key] = bufs
-        out_x, out_a, out_pd = bufs
         rc = lib.enum_gen_roots(
             d, mut, rdiag,
             pr.ctypes.data_as(ctypes.c_void_p) if pr is not None else None,
             cp0, float(maxdist), int(is_svp), int(dual),
             int(max_device_levels), int(target), int(cap), int(nfix_max),
-            out_x,
-            out_a.ctypes.data_as(ctypes.c_void_p)
-            if out_a is not None else None,
-            out_pd, nodes, ctypes.byref(m_real), ctypes.byref(count))
+            nodes, ctypes.byref(m_real), ctypes.byref(count))
         if rc != 0:
             return None
         R, m = int(count.value), int(m_real.value)
-        nfix = d - m
-        xs = out_x[:R, :nfix].copy()
-        als = out_a[:R, :nfix].copy() if dual else xs
-        pd_out = out_pd[:R].copy()
-    return xs, als, pd_out, m, nodes
+        xs = np.empty((R, d - m))
+        als = np.empty((R, d - m)) if dual else xs
+        pd = np.empty(R)
+        lib.enum_roots_take(xs, als.ctypes.data_as(ctypes.c_void_p)
+                            if dual else None, pd)
+    return xs, als, pd, m, nodes
+
+
+def native_pack_roots(roots_x: np.ndarray, roots_a: Optional[np.ndarray],
+                      roots_pd: np.ndarray, out_x: np.ndarray,
+                      out_a: Optional[np.ndarray], out_pd: np.ndarray) -> None:
+    """One launch's root queue in the kernel's layout
+    (enum_core.c:enum_roots_pack): the rows of roots_x (R, nfix) (and of
+    roots_a, written to out_a when that is given) in the stable order of
+    roots_pd, written into the C-contiguous arrays out_x (R_pad,
+    nfix_pad) (and out_a) and out_pd (R_pad,) of one element type,
+    float32 or float64, as that type: pad columns and rows zero, pad
+    distances +inf."""
+    lib = get_lib()
+    R, nfix = roots_x.shape
+    R_pad, nfix_pad = out_x.shape
+    outs = [out_x, out_pd] + ([] if out_a is None else [out_a])
+    if out_x.dtype not in (np.float32, np.float64) or any(
+            t.dtype != out_x.dtype or not t.flags.c_contiguous
+            for t in outs) or out_pd.shape != (R_pad,) or \
+            (out_a is not None and out_a.shape != out_x.shape):
+        raise ValueError("root queue: C-contiguous float32 or float64 "
+                         "arrays (R_pad, nfix_pad) and (R_pad,)")
+    x = np.ascontiguousarray(roots_x, dtype=np.float64)
+    a = None if out_a is None else \
+        np.ascontiguousarray(roots_a, dtype=np.float64)
+    pd = np.ascontiguousarray(roots_pd, dtype=np.float64)
+    with _ROOTS_LOCK:
+        rc = lib.enum_roots_pack(
+            R, nfix, x, None if a is None else a.ctypes.data, pd, R_pad,
+            nfix_pad, int(out_x.dtype == np.float32), out_x.ctypes.data,
+            None if out_a is None else out_a.ctypes.data, out_pd.ctypes.data)
+    if rc != 0:
+        raise ValueError(f"root queue: {R} x {nfix} roots do not fit "
+                         f"{R_pad} x {nfix_pad}, or memory ran out")
 
 
 # ---------------------------------------------------------------------------

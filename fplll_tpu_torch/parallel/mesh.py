@@ -49,6 +49,7 @@ import numpy as np
 from .. import trace
 from ..enum.device import DeviceEnumerator
 from ..enum.kernels import MAX_LEVELS, _K_TOP, _form, enum_collect, enum_launch
+from ..native import native_pack_roots
 from ..torchsetup import resolve_device, torch
 
 __all__ = ["make_enum_mesh", "ShardedEnumerator"]
@@ -298,18 +299,27 @@ def _sweep(mesh: EnumMesh, shards: List[_Shard], busy: List[int], A: float,
     return A, stole
 
 
-def _queue(roots_x, roots_pd, order, nfixp: int, dtype, roots_a=None):
-    """The root queue in `order`: roots_x (and, for a dual tree, roots_a)
-    padded to nfixp columns, roots_pd, and those partial distances in
-    the tree's element type, which the kernel compares with the bound."""
-    queue = {"roots_pd": roots_pd[order]}
-    for key, roots in (("roots_x", roots_x), ("roots_a", roots_a)):
-        if roots is not None:
-            queue[key] = np.zeros((len(order), nfixp))
-            queue[key][:, :roots.shape[1]] = roots[order]
-    pd = queue["roots_pd"].astype(
-        np.float32 if dtype == torch.float32 else np.float64)
-    return queue, pd
+def _queue(roots_x, roots_pd, nfixp: int, dtype, roots_a=None,
+           stripes: int = 1):
+    """The root queue sorted by partial distance (native_pack_roots:
+    stable, ties in expansion order), in the tree's element type, which
+    the kernel compares with the bound: roots_x (and, for a dual tree,
+    roots_a) padded to nfixp columns, and roots_pd; dealt round-robin
+    into `stripes` stripes laid one after another. Returns the queue and
+    its partial distances."""
+    R = len(roots_pd)
+    host = np.float32 if dtype == torch.float32 else np.float64
+    queue = {"roots_x": np.empty((R, nfixp), host),
+             "roots_pd": np.empty(R, host)}
+    if roots_a is not None:
+        queue["roots_a"] = np.empty((R, nfixp), host)
+    native_pack_roots(roots_x, roots_a, roots_pd, queue["roots_x"],
+                      queue.get("roots_a"), queue["roots_pd"])
+    if stripes > 1:
+        deal = np.concatenate([np.arange(i, R, stripes)
+                               for i in range(stripes)])
+        queue = {k: v[deal] for k, v in queue.items()}
+    return queue, queue["roots_pd"]
 
 
 def _tree_dtype(dtype, default):
@@ -430,11 +440,10 @@ class ShardedEnumerator:
         m_real = min(m_real, m)
         # deal the sorted roots round-robin so that cheap and dear roots
         # spread over the shards; shard i starts on its own stripe
-        order = np.argsort(roots_pd)
-        stripes = [order[i::n] for i in range(n)]
-        starts = np.cumsum([0] + [len(s) for s in stripes])
-        queue, pd = _queue(roots_x, roots_pd, np.concatenate(stripes), nfixp,
-                           self.dtype, roots_a if dual else None)
+        R = len(roots_pd)
+        starts = np.cumsum([0] + [len(range(i, R, n)) for i in range(n)])
+        queue, pd = _queue(roots_x, roots_pd, nfixp, self.dtype,
+                           roots_a if dual else None, stripes=n)
         shards = [_Shard(_put(self.mesh, i, {**tree, **queue}, self.dtype),
                          m, m_real, pd, int(starts[i]), int(starts[i + 1]),
                          self.batch_per_device) for i in range(n)]
@@ -529,7 +538,7 @@ def mesh_enumerate_trials(mesh: EnumMesh, muts, rdiags, prunes, maxdists,
         tree = helper._pack_tree(muts[g], rdiags[g], prunes[g], cp0, d,
                                  m_real)
         m, nfixp = tree.pop("m"), tree.pop("nfix_pad")
-        queue, pd = _queue(rx, rpd, np.argsort(rpd), nfixp, dtype)
+        queue, pd = _queue(rx, rpd, nfixp, dtype)
         shards.append(_Shard(_put(mesh, g, {**tree, **queue}, dtype), m,
                              min(m_real, m), pd, 0, len(rpd),
                              batch_per_device, A_cap=A_g))

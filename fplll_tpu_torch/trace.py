@@ -24,8 +24,12 @@ The port's spans and counters, and who reads them:
   straight to the card without the first pass
   (``enum/device.py:skips_first_pass``);
 - ``enum.roots`` > ``enum.roots.native``: root generation and the native
-  expansion in it; ``enum.pack`` > ``enum.pack.h2d``: the sort and pad,
-  and the copies to the device;
+  expansion in it, with the counters ``enum.frontier.native`` and
+  ``enum.frontier.python``, once per frontier the C core's expansion or
+  the NumPy level loop built; ``enum.pack`` > ``enum.pack.h2d``: the sort
+  and pad into the device's staging buffer, and the one copy to the
+  device, with the counter ``enum.stage.grown``, once per (re)allocation
+  of a staging buffer;
 - ``kernels.run`` > ``kernels.stage`` (geometry, outputs, the launch
   call, up to the return of ``enum_launch``; on CPU tensors the plain
   version's whole run), ``kernels.wait`` (the read of the abort flag)

@@ -14,10 +14,12 @@ two threads (ROADMAP.md, "Not faults").
 
 import math
 import os
+import sys
 import threading
 
 import numpy as np
 import pytest
+import torch
 
 import fplll_tpu as fl
 import fplll_tpu.native as jax_native
@@ -144,6 +146,55 @@ def test_concurrent_root_expansion():
             assert got[3] == exp[3]
             for k in (0, 2, 4):
                 assert np.array_equal(got[k], exp[k])
+
+
+def test_concurrent_root_queues():
+    """DeviceEnumerator's frontier and queue (the native expansion, the
+    sort and write into the device's one staging buffer, the copy out of
+    it) in more threads than cores at once, switching often, on two
+    problems, primal and dual: every thread gets the single-thread
+    tensors."""
+    from fplll_tpu_torch.enum.device import DeviceEnumerator
+
+    probs = [problem(seed, d=30) for seed in (7, 13)]
+    cp0 = np.zeros(30)
+
+    def queue(i):
+        mut, rdiag, A = probs[i]
+        enum = DeviceEnumerator(batch=64, device="cpu")
+        enum.nodes = np.zeros(30, dtype=np.int64)
+        dual = i == 1
+        xs, als, pd, m = enum._gen_roots(mut, rdiag, np.ones(30), cp0, A,
+                                         30, True, dual=dual)
+        out = enum._pack(mut, rdiag, np.ones(30), cp0, 30, xs, pd, m,
+                         als if dual else None)
+        return out, enum.nodes.copy()
+
+    expected = [queue(i) for i in range(2)]
+    assert "roots_a" in expected[1][0] and "roots_a" not in expected[0][0]
+    threads = (os.cpu_count() or 1) + 1
+    results = [[None, None] for _ in range(threads)]
+
+    def work(tid):
+        for _ in range(10):
+            for i in (tid % 2, 1 - tid % 2):
+                results[tid][i] = queue(i)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        race(work, threads=threads)
+    finally:
+        sys.setswitchinterval(interval)
+    for tid in range(threads):
+        for (got, nodes), (want, want_nodes) in zip(results[tid], expected):
+            assert np.array_equal(nodes, want_nodes)
+            assert got.keys() == want.keys()
+            for k, t in want.items():
+                if isinstance(t, torch.Tensor):
+                    assert torch.equal(got[k], t), k
+                else:
+                    assert got[k] == t, k
 
 
 def test_concurrent_builds_rename_into_place(tmp_path, monkeypatch):

@@ -132,6 +132,77 @@ def test_single_root_form_matches_plain(card):
     assert int(k["sol_count"]) > 0
 
 
+def earlier_launch(enum, mut, rdiag, prune, A, dual):
+    """The launch inputs the pipeline before the staging buffer built for
+    one search of `enum`, on the CPU: the C expansion, a stable
+    np.argsort, _pack_tree and the float64 pad, torch.as_tensor to the
+    tree's dtype (tests/test_torch_root_queue.py holds the staging to it
+    on CPU tensors)."""
+    from fplll_tpu_torch.native import native_gen_roots
+
+    d = len(rdiag)
+    xs, als, pd, m_real, _ = native_gen_roots(
+        mut, rdiag, prune, np.zeros(d), A, True, dual,
+        enum.max_device_levels, enum.target_root_factor * enum.batch)
+    order = np.argsort(pd, kind="stable")
+    tree = enum._pack_tree(mut, rdiag, prune, np.zeros(d), d, m_real)
+    tree.pop("m")
+    nfix_pad = tree.pop("nfix_pad")
+    R, nfix = len(pd), d - m_real
+    R_pad = max(1024, enum.pin_R)
+    while R_pad < R:
+        R_pad *= 2
+    host = dict(tree, roots_x=np.zeros((R_pad, nfix_pad)),
+                roots_pd=np.full(R_pad, np.inf))
+    host["roots_x"][:R, :nfix] = xs[order]
+    host["roots_pd"][:R] = pd[order]
+    if dual:
+        host["roots_a"] = np.zeros((R_pad, nfix_pad))
+        host["roots_a"][:R, :nfix] = als[order]
+    return {k: torch.as_tensor(np.ascontiguousarray(a), dtype=enum.dtype)
+            for k, a in host.items()}
+
+
+def test_back_to_back_queues_arrive_whole(card):
+    """Four launches' inputs staged one right after another on the card,
+    each while the copy of the one before still waits behind a busy
+    stream: a wide f32 queue, a narrow one, an f64 tree and a dual one.
+    Each arrives as the earlier pipeline builds it, tensor for tensor:
+    the staging buffer is written again only once the copy out of it has
+    ended."""
+    cases = [((56, 1, True), 32, torch.float32, False),
+             ((40, 3, True), 1, torch.float32, False),
+             ((40, 3, False), 16, torch.float64, False),
+             ((40, 3, True), 16, torch.float32, True)]
+    staged, want = [], []
+    for (d, seed, pruned), factor, dtype, dual in cases:
+        mut, rdiag, prune, A = window(d, seed, pruned)
+        enum = DeviceEnumerator(batch=1024, target_root_factor=factor,
+                                device=card, dtype=dtype)
+        enum.nodes = np.zeros(d, dtype=np.int64)
+        rx, ra, rpd, m_real = enum._gen_roots(mut, rdiag, prune, np.zeros(d),
+                                              A, d, True, dual=dual)
+        staged.append((enum, (mut, rdiag, prune, np.zeros(d), d, rx, rpd,
+                              m_real), ra if dual else None))
+        want.append(earlier_launch(enum, mut, rdiag, prune, A, dual))
+    torch.cuda.synchronize()
+    got = []
+    for enum, args, roots_a in staged:
+        # the copy that _pack enqueues waits behind this on the stream,
+        # about 25 ms, while the next _pack writes its inputs
+        torch.cuda._sleep(50_000_000)
+        got.append(enum._pack(*args, roots_a=roots_a))
+    torch.cuda.synchronize()
+    rows = [int(torch.isfinite(w["roots_pd"]).sum()) for w in want]
+    assert rows[0] > 32768 > rows[1] >= 1024
+    for pack, ref in zip(got, want):
+        assert set(ref) <= set(pack) and ("roots_a" in pack) == \
+            ("roots_a" in ref)
+        for k, t in ref.items():
+            assert pack[k].device.type == "cuda", k
+            assert torch.equal(pack[k].cpu(), t), k
+
+
 def test_grouped_kernel_matches_plain(card):
     """Three bases of one lattice and one padding problem in one launch:
     the union best equals the plain grouped version's, and the padding

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import fplll_tpu_torch as ft
 from fplll_tpu_torch import native, trace
 from fplll_tpu_torch.algs.bkz_param import load_strategies_json
 from fplll_tpu_torch.enum import device as tdev
@@ -82,6 +83,7 @@ def test_off_solve_records_nothing(window, monkeypatch):
 
 def test_on_solve_gives_one_request_tree(window, monkeypatch):
     seen = []
+    monkeypatch.setattr(tdev, "_STAGING", {})   # a staging buffer to grow
 
     def spy(*a, **k):
         out = native_enumerate(*a, **k)
@@ -112,8 +114,45 @@ def test_on_solve_gives_one_request_tree(window, monkeypatch):
     assert snap.launches == [] and not snap.named("kernels.wait")
     (_, _, _, _, cnodes, visited), = seen
     assert snap.counts == {"first_pass.iters": visited,
-                           "first_pass.nodes": int(np.sum(cnodes))}
+                           "first_pass.nodes": int(np.sum(cnodes)),
+                           "enum.frontier.native": 1,
+                           "enum.stage.grown": 1}
     assert visited == 50
+
+
+@pytest.mark.parametrize("subsols", [False, True])
+def test_frontier_counters_name_the_expansion(subsols, monkeypatch):
+    """A search counts the expansion that built each launch's frontier:
+    the C core's once per launch, the NumPy level loop's (sub-solutions)
+    once per frontier it builds; a staging buffer large enough already
+    is not grown again."""
+    from fplll_tpu_torch.defs import GSO_INT_GRAM
+    from fplll_tpu_torch.enum.evaluator import FastEvaluator
+
+    RandGen.init_with_seed(3)
+    b = ft.gen.gen_qary_bits(30, 15, 12)
+    ft.lll_reduction(b)
+    gso = ft.MatGSO(b, flags=GSO_INT_GRAM, ctx=ft.MPCtx(90))
+    gso.update_gso()
+    mut, rdiag, _ = gso.export_mu_r(0, 30)
+    mut, rdiag = np.asarray(mut), np.asarray(rdiag, dtype=np.float64)
+    radius = 1.1 * tdev.gh_squared(rdiag)
+    launches = []
+    monkeypatch.setattr(tdev, "enum_run", lambda **kw: launches.append(
+        kw) or kernels.enum_run(**kw))
+    ev = FastEvaluator(find_subsolutions=subsols)
+    enum = tdev.DeviceEnumerator(batch=64, device="cpu")
+    prune = np.linspace(1.0, 0.3, 30)
+    enum.enumerate(mut, rdiag, prune, np.zeros(30), radius, True,
+                   ev)      # grows the staging buffer if it must
+    trace.start()
+    try:
+        enum.enumerate(mut, rdiag, prune, np.zeros(30), radius, True, ev)
+    finally:
+        snap = trace.stop()
+    name = "enum.frontier.python" if subsols else "enum.frontier.native"
+    assert len(launches) == 2
+    assert snap.counts == {name: 1}
 
 
 def test_spans_nest_per_thread_and_count():
